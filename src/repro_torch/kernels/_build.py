@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+
+Each source compiles with ``nvcc`` into its own shared library with a plain
+C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build
+takes seconds).  All sources are compiled together, one ``nvcc`` process
+each, the first time any kernel is asked for.  Libraries land in
+``build/repro_torch_kernels/`` at the repository root under a name that
+hashes the source and the flags, so an edited source is never served from
+a stale library.  A failed build or load raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+#: source stem -> {C function: argtypes}; every function returns cudaError_t
+SIGNATURES = {
+    "relax_round": {
+        # dist, lams, indptr, src, w, t, best, psrc, n_nodes, n_actors, k,
+        # witness, stream
+        "relax_round": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    },
+    "maxplus_matmul": {
+        "maxplus_bmm": [_P, _P, _P, _I, _I, _I, _I, _P],  # A, B, C, G, M, N, K, stream
+        "maxplus_bmv": [_P, _P, _P, _I, _I, _I, _P],      # A, x, y, G, M, K, stream
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+#: wall seconds the last build_all() spent compiling and loading
+BUILD_SECONDS = 0.0
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to build with: ``$CUDA_HOME/bin/nvcc``, else on PATH."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "cannot build the repro_torch CUDA kernels: no nvcc under "
+            f"{home}/bin or on PATH"
+        )
+    return found
+
+
+def _lib_path(stem: str) -> pathlib.Path:
+    digest = hashlib.sha256(
+        (CSRC / f"{stem}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile every missing library in parallel, then load them all."""
+    global BUILD_SECONDS
+    with _LOCK:
+        if len(_LIBS) == len(SIGNATURES):
+            return _LIBS
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = [s for s in SIGNATURES if not _lib_path(s).is_file()]
+        if todo:
+            nvcc = nvcc_path()
+            procs = {}
+            for stem in todo:
+                tmp = _lib_path(stem).with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+                procs[stem] = (tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ))
+            failed = []
+            for stem, (tmp, proc) in procs.items():
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{stem}.cu (nvcc exit {proc.returncode}):\n{out}")
+                else:
+                    os.replace(tmp, _lib_path(stem))
+            if failed:
+                raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        for stem, funcs in SIGNATURES.items():
+            lib = ctypes.CDLL(str(_lib_path(stem)))
+            for fn, argtypes in funcs.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LIBS[stem] = lib
+        BUILD_SECONDS = time.perf_counter() - t0
+        return _LIBS
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (built on first use)."""
+    lib = _LIBS.get(stem)
+    return lib if lib is not None else build_all()[stem]
