@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's compile-and-admit path on one GPU.
+"""Drive the PyTorch/CUDA port's compile-and-admit and LM serving paths on one GPU.
 
 Run from the repository root:  ``PYTHONPATH=src python3 chip_smoke.py``
 (the script also finds ``src/`` beside itself).  It needs one CUDA device
@@ -19,13 +19,29 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               throughput within 1e-8) and the largest stack the admission
               phase solved (HeartClass's) by "csr" on the card against
               "edges" on the host (rtol 1e-8)
-5. kernels    every kernel against its plain PyTorch version on the card
-              (bit-identical), with times and bounds, on the inputs of its
-              largest call in phases 2 and 3
+5. lm_serve   the LM serving path: qwen2-1.5b at full width, float32 params
+              from a seeded generator, served with the reference's defaults
+              (8 requests, 32 prompt + 32 generated tokens, greedy); the
+              prefill step on the same prompts (flash kernel, float32) held
+              against the serve loop's teacher-forced decode logits (plain
+              attention) at the reference's 2e-2, and its last argmax against
+              the first generated token
+6. lm_prefill the prefill step in bf16 params (as the reference's prefill cell
+              lowers it): qwen2-1.5b at (1, 32768) tokens, prefill_32k's
+              length with the batch cut from 32 to 1, then starcoder2-3b at
+              (1, 8192), whose 4096-token window runs the kernel's window
+              branch; each model is freed before the next
+7. kernels    every kernel against its plain PyTorch version on the card, with
+              times and bounds, on the inputs of its largest call in phases
+              2-6: K1-K4 bit-identical; flash attention, also at its largest
+              float32 call and its largest windowed call, within
+              kernels/ref.py's ATTN_TOL (per element one rounding step of
+              the output type plus 2^-14 of its row's root mean square);
+              all three flash comparisons are printed before any is checked
 
-Launch counts are set to 0 just before each path's phase (2, 3) and read
-just after, and reported per path; launches made to compare or time kernels
-do not count.
+Launch counts are set to 0 just before each path's phase (2, 3, 5, 6) and
+read just after, and reported per path; launches made to compare or time
+kernels do not count.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 FP64_FLOPS_PER_S = 34e12     # float64 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # bf16 on the tensor cores
 #: a (max,+) term is two float32 instructions (FADD, FMNMX), so it takes
 #: the dispatch slots of four data-sheet flops; FMNMX's own rate on sm_90
 #: (64 per clock per SM, half the FADD rate) gives the same bound
@@ -61,6 +78,11 @@ REQUESTS = {
 }
 OPTIMIZE_BUDGET = (2, 64)
 BATCH = 64                   # candidate rows of the dense-path stack
+#: tokens of starcoder2-3b's bf16 prefill: twice its 4096-token window
+STARCODER2_TOKENS = 8_192
+#: the reference's own decode-vs-forward contract (tests/test_models_smoke.py)
+SERVE_RTOL = SERVE_ATOL = 2e-2
+PROFILED_DECODE_STEPS = 4
 
 
 def emit(obj) -> None:
@@ -83,15 +105,21 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
+    from repro_torch.configs import SHAPES, get_arch
     from repro_torch.core import apps, engine, maxplus, runtime
     from repro_torch.core.hardware import DYNAP_SE_1024, DYNAP_SE_16
     from repro_torch.core.sdfg import sdfg_from_clusters
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import maxplus_bellman as kbell
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import transformer as ttf
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -116,6 +144,19 @@ def main() -> None:
         ops.reset_launches()
         kbell.reset_counts()
 
+    def device_us(prof):
+        """Device µs per kernel or copy of a ``torch.profiler`` run.  Only
+        the device's own events count: a host op's row repeats the time of
+        the kernels it launched."""
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                out[ev.key] = us
+        return out
+
     launches = {k: {} for k in ops.LAUNCHES}   # kernel -> {path: launches}
 
     def read_into(path):
@@ -123,10 +164,11 @@ def main() -> None:
             launches[k][path] = v
 
     # Every wrapper is spied on: per path, the shapes it was given, and the
-    # inputs of its largest call, on which phase 5 times and checks it.
+    # inputs of its largest call, on which phase 7 times and checks it.
     where = {"path": None, "app": None}
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
-    largest = {}                                # kernel -> dict(work, path, app, shape, args)
+    largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
+    flash_largest = {}                          # "float32" / "windowed" -> the same
 
     def k1_shape(dist, lams, csr):
         return (dist.shape[0] // csr.n_actors, csr.n_actors, int(csr.src.numel()), dist.shape[1])
@@ -137,25 +179,36 @@ def main() -> None:
         "maxplus_bmm": ("GMKN", lambda a, b: (*a.shape, b.shape[2])),
         "maxplus_bmv": ("GMK", lambda a, x: tuple(a.shape)),
         "maxplus_matmul": ("MKN", lambda a, b: (*a.shape, b.shape[1])),
+        "flash_attention": (("B", "Hq", "Hkv", "Sq", "Skv", "D"),
+                            lambda q, k, v, **kw: (*q.shape[:2], k.shape[1], q.shape[2],
+                                                   k.shape[2], q.shape[3])),
     }
 
     def work(name, shape):    # E*K terms for K1, the product of the dims otherwise
         return shape[2] * shape[3] if name.startswith("relax") else math.prod(shape)
 
+    def keep_if_larger(table, key, name, shape, args, kwargs):
+        if key not in table or work(name, shape) > table[key]["work"]:
+            table[key] = {
+                "work": work(name, shape), "path": where["path"], "app": where["app"],
+                "shape": shape, "kwargs": dict(kwargs), "args": tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+            }
+
     def spy(name):
         orig = getattr(ops, name)
 
-        def call(*args):
+        def call(*args, **kwargs):
             if where["path"] is not None and args[0].is_cuda:
-                shape = tuple(int(d) for d in shape_of[name][1](*args))
+                shape = tuple(int(d) for d in shape_of[name][1](*args, **kwargs))
                 seen[name].setdefault(where["path"], collections.Counter())[shape] += 1
-                if name not in largest or work(name, shape) > largest[name]["work"]:
-                    largest[name] = {
-                        "work": work(name, shape), "path": where["path"], "app": where["app"],
-                        "shape": shape, "args": tuple(
-                            a.clone() if isinstance(a, torch.Tensor) else a for a in args),
-                    }
-            return orig(*args)
+                keep_if_larger(largest, name, name, shape, args, kwargs)
+                if name == "flash_attention":
+                    if args[0].dtype == torch.float32:
+                        keep_if_larger(flash_largest, "float32", name, shape, args, kwargs)
+                    if kwargs.get("window", 0) > 0:
+                        keep_if_larger(flash_largest, "windowed", name, shape, args, kwargs)
+            return orig(*args, **kwargs)
 
         setattr(ops, name, call)
 
@@ -309,11 +362,7 @@ def main() -> None:
         replay(dev)
     replay(torch.device("cpu"))
     # device busy share of one profiled admission (kernels and copies)
-    dev_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            dev_us[ev.key] = us
+    dev_us = device_us(prof)
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     same_binding = bool(np.array_equal(reps["cuda"].binding, reps["cpu"].binding))
@@ -343,12 +392,128 @@ def main() -> None:
           "csr_card_s": card_s, "edges_host_s": host_s,
           "wall_s": time.perf_counter() - t_phase})
 
-    # -- 5. kernels against their plain versions --------------------------
+    # -- 5. LM serving path (main path of the LM substrate) --------------
+    t_phase = time.perf_counter()
+    args = tserve.parse_args([])        # the reference's defaults
+    where.update(path="lm_serve", app=args.arch)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    cfg, params, prompts = tserve.setup(args, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    res = tserve.serve(cfg, params, prompts, args.gen_tokens, args.max_len, dev,
+                       keep_prompt_logits=True)
+    t = time.perf_counter()
+    prefill_logits = tsteps.make_prefill_step(cfg)(
+        params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    torch.cuda.synchronize()
+    prefill_step_s = time.perf_counter() - t
+    # device time of a few decode steps, profiled after the run: against the
+    # unprofiled step wall it says how long the card waits on the host
+    step = tsteps.make_serve_step(cfg)
+    cache = ttf.init_cache(cfg, args.requests, args.max_len, dtype=torch.float32, device=dev)
+    tok = torch.as_tensor(prompts[:, :1], device=dev)
+    step(params, cache, tok, 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        for i in range(1, 1 + PROFILED_DECODE_STEPS):
+            step(params, cache, tok, i)
+        torch.cuda.synchronize()
+    decode_us = device_us(prof)
+    decode_busy_ms = sum(decode_us.values()) / 1e3 / PROFILED_DECODE_STEPS
+    del cache, prof
+    serve_launches = dict(ops.LAUNCHES)
+    read_into("lm_serve")
+    where.update(path=None, app=None)
+    check(res.tokens.shape == (args.requests, args.gen_tokens)
+          and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(), "bad generated tokens")
+    check(prefill_logits.shape == (args.requests, args.prompt_len, cfg.vocab)
+          and bool(torch.isfinite(prefill_logits).all()), "prefill logits not finite")
+    check(serve_launches["flash_attention"] == cfg.n_layers,
+          f"the prefill step launched flash attention {serve_launches['flash_attention']} "
+          f"times, not once per layer ({cfg.n_layers})")
+    fwd, dec = prefill_logits.float(), res.prompt_logits.float()
+    serve_err = float((fwd - dec).abs().max())
+    check(bool(torch.allclose(fwd, dec, rtol=SERVE_RTOL, atol=SERVE_ATOL)),
+          f"prefill vs teacher-forced decode logits differ by {serve_err}")
+    first = prefill_logits[:, -1].argmax(dim=-1).cpu().numpy()
+    check(np.array_equal(first, res.tokens[:, 0]),
+          f"first generated tokens {res.tokens[:, 0]} are not the prefill argmax {first}")
+    emit({"phase": "lm_serve", "arch": cfg.name, "params_dtype": "float32",
+          "activation_dtype": str(cfg.activation_dtype), "requests": args.requests,
+          "prompt_len": args.prompt_len, "gen_tokens": args.gen_tokens, "max_len": args.max_len,
+          "setup_s": setup_s, "prefill_teacher_forced_s": res.prefill_s,
+          "decode_s": res.decode_s, "decode_tokens_per_s": res.tokens_per_s,
+          "prefill_step_s": prefill_step_s,
+          "prefill_step_tokens_per_s": prompts.size / prefill_step_s,
+          "prefill_vs_decode_logits_max_abs": serve_err,
+          "decode_step_ms": 1e3 * res.decode_s / args.gen_tokens,
+          "decode_step_device_busy_ms": decode_busy_ms,
+          "decode_device_busy_share": decode_busy_ms / (1e3 * res.decode_s / args.gen_tokens),
+          "decode_top_device_us": sorted(decode_us.items(), key=lambda kv: -kv[1])[:6],
+          "first_token_equals_prefill_argmax": True, "sample": res.tokens[0][:16].tolist(),
+          "launches": serve_launches,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "wall_s": time.perf_counter() - t_phase})
+    del params, res, prefill_logits, fwd, dec
+    torch.cuda.empty_cache()
+
+    # -- 6. bf16 prefill at full length ------------------------------------
+    t_phase = time.perf_counter()
+    where["path"] = "lm_prefill"
+    reset()
+    prefill_runs = []
+    # qwen2-1.5b at prefill_32k's length with its batch cut from 32 to 1
+    for arch, seq in (("qwen2-1.5b", SHAPES["prefill_32k"]["seq_len"]),
+                      ("starcoder2-3b", STARCODER2_TOKENS)):
+        cfg = get_arch(arch)
+        where["app"] = cfg.name
+        params = ttf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                 dtype=cfg.activation_dtype)
+        tokens = torch.as_tensor(
+            np.random.default_rng(1).integers(0, cfg.vocab, (1, seq)), device=dev)
+        before = ops.LAUNCHES["flash_attention"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        logits = tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_flash = ops.LAUNCHES["flash_attention"] - before
+        check(n_flash == cfg.n_layers, f"{arch}: {n_flash} flash launches for {cfg.n_layers} layers")
+        check(logits.shape == (1, seq, cfg.vocab) and logits.dtype == cfg.activation_dtype,
+              f"{arch}: logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits not finite")
+        prefill_runs.append({
+            "arch": cfg.name, "tokens": [1, seq], "params_dtype": str(cfg.activation_dtype),
+            "window": cfg.window, "layers": cfg.n_layers, "wall_s": wall,
+            "tokens_per_s": seq / wall, "flash_launches": n_flash,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        })
+        del params, tokens, logits
+        torch.cuda.empty_cache()
+    read_into("lm_prefill")
+    where.update(path=None, app=None)
+    emit({"phase": "lm_prefill", "runs": prefill_runs,
+          "reduced": "batch 1 of prefill_32k's 32 (qwen2-1.5b); starcoder2-3b at 8192 tokens",
+          "launches": dict(ops.LAUNCHES), "wall_s": time.perf_counter() - t_phase})
+
+    # -- 7. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card
         busy while the host enqueues them, so the events time the device
-        work and not the Python launch overhead."""
+        work and not the Python launch overhead.  A call over 10 ms is
+        timed alone, 3 times."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        if a.elapsed_time(b) > 10.0:
+            trials, reps, warm = 3, 1, 0
         for _ in range(warm):
             fn()
         times = []
@@ -376,7 +541,9 @@ def main() -> None:
     kernels = []
 
     def record(name, source, replaces, fn, plain, err, nbytes, n_terms, terms_per_s,
-               library=None):
+               library=None, tol_ratio=None, **extra):
+        """One kernels-line entry: the kernel must be bit-identical to its
+        plain version, or with ``tol_ratio`` (attention) at most 1."""
         torch.cuda.synchronize()
         b_ms, b_by = bound(nbytes, n_terms, terms_per_s)
         big = largest[name]
@@ -388,11 +555,15 @@ def main() -> None:
                             for path, cnt in seen[name].items()},
             "launches": sum(launches[name].values()), "launches_by_path": launches[name],
             # one figure under the two names its readers look for
-            "max_abs_err": err, "max_abs_diff": err,
+            "max_abs_err": err, "max_abs_diff": err, "tolerance": "bit-identical",
             "ms": timed(fn), "plain_ms": timed(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timed(library) if library is not None else None,
+            "library_ms": timed(library) if library is not None else None, **extra,
         })
-        check(err == 0.0, f"{name} disagrees with its plain version: {err}")
+        if tol_ratio is None:
+            check(err == 0.0, f"{name} differs from its plain version by {err}")
+        else:
+            kernels[-1]["tol_ratio"] = tol_ratio
+            check(tol_ratio <= 1.0, f"{name} is {tol_ratio} times its tolerance")
 
     for name in shape_of:
         check(name in largest, f"{name} was never called on the card by phases 2-3")
@@ -438,6 +609,74 @@ def main() -> None:
                max_abs_err(kern_fn(a, b), plain_fn(a, b)),
                (a.numel() + b.numel() + out_numel) * 4, largest[name]["work"],
                MAXPLUS_TERMS_PER_S)
+
+    # K6 on the inputs of its largest call (qwen2-1.5b's 32k bf16 prefill),
+    # and checked at its largest float32 call and its largest windowed call
+    def attn_pairs(sq, skv, causal, window):
+        """(query, key) pairs the masks keep, per (batch, head)."""
+        i = np.arange(sq, dtype=np.int64)
+        hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+        lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, dtype=np.int64)
+        return int(np.maximum(hi - lo + 1, 0).sum())
+
+    def flash_work(q, k, causal, window):
+        """(bytes of q, k, v and o; flops; peak flop rate of q's type)."""
+        b_, hq, sq, d = q.shape
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        flops = 4 * d * hq * b_ * attn_pairs(sq, k.shape[2], causal, window)
+        return nbytes, flops, BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+
+    def flash_case(key, call):
+        """(the comparison's row, the call's inputs and work)."""
+        q, k, v = call["args"]
+        kw = {"causal": call["kwargs"].get("causal", True), "window": call["kwargs"].get("window", 0)}
+        out, plain = ops.flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw)
+        err, excess = max_abs_err(out, plain), ref.attention_excess(out, plain)
+        del out, plain
+        rtol, row_tol = ref.ATTN_TOL[q.dtype]
+        return {
+            "call": key, "path": call["path"], "app": call["app"],
+            "dtype": str(q.dtype).split(".")[-1], **kw,
+            "shape": dict(zip(shape_of["flash_attention"][0], call["shape"])),
+            "max_abs_err": err, "tol_ratio": excess,
+            "tolerance": {"rtol": rtol, "row_tol": row_tol},
+        }, (q, k, v, kw, *flash_work(q, k, **kw))
+
+    for key in ("float32", "windowed"):
+        check(key in flash_largest, f"flash attention had no {key} call in phases 5-6")
+    cases = {key: flash_case(key, call) for key, call in
+             (("largest", largest["flash_attention"]), *flash_largest.items())}
+    emit({"phase": "flash_checks", "checks": [row for row, _ in cases.values()]})
+    for key, (row, _) in cases.items():
+        check(row["tol_ratio"] <= 1.0,
+              f"flash attention ({key} call) is {row['tol_ratio']} times its tolerance "
+              f"(max abs err {row['max_abs_err']})")
+    for key in ("float32", "windowed"):
+        row, (q, k, v, kw, nbytes, flops, peak) = cases[key]
+        row.update(ms=timed(lambda: ops.flash_attention(q, k, v, **kw)),
+                   plain_ms=timed(lambda: ref.attention_ref(q, k, v, **kw)),
+                   bound_ms=bound(nbytes, flops, peak)[0])
+    row, (q, k, v, kw, nbytes, flops, peak) = cases["largest"]
+    # the library yardstick, timed here only: PyTorch's flash backend (its
+    # math backend would materialise the (Sq, Skv) scores)
+    sdpa, sdpa_error = None, None
+    if kw["causal"] and not kw["window"]:
+        def sdpa():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        try:
+            sdpa()
+            torch.cuda.synchronize()
+        except RuntimeError as e:     # no flash backend for this call: no yardstick
+            sdpa, sdpa_error = None, str(e).splitlines()[0][:300]
+    record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:130",
+           lambda: ops.flash_attention(q, k, v, **kw), lambda: ref.attention_ref(q, k, v, **kw),
+           row["max_abs_err"], nbytes, flops, peak, library=sdpa, tol_ratio=row["tol_ratio"],
+           tolerance=row["tolerance"], checks=[r for r, _ in cases.values()],
+           library_call="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
+                        "flash backend", library_error=sdpa_error)
+    del q, k, v, cases
 
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} never launched on the main path")

@@ -2,10 +2,12 @@
 
 The reference's objects read as numpy arrays and plain fields, so the port
 never imports ``repro`` to convert them: each converter copies the fields
-of the object it is given into the port's class of the same name.  This
-system has no weights; these arrays (the SNN, its clustering, the chip
-model and its degradation, the dataflow graph, the stacked edge arrays)
-are its state.  The tests feed both packages identical inputs through it.
+of the object it is given into the port's class of the same name.  The
+compile-and-admit path has no weights; its arrays (the SNN, its
+clustering, the chip model and its degradation, the dataflow graph, the
+stacked edge arrays) are its state.  The LM substrate's parameter pytree
+converts with :func:`lm_params`.  The tests feed both packages identical
+inputs through it.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core import hardware, maxplus, partition, sdfg, snn
+from .device import resolve
 
 #: port classes by name: a reference dataclass converts into its namesake
 _CLASSES = {
@@ -74,3 +78,22 @@ def chip_state(obj) -> hardware.ChipState:
     cs.drift = dict(obj.drift)
     cs.epoch = int(obj.epoch)
     return cs
+
+
+def _tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16, which torch cannot read
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def lm_params(tree, device=None):
+    """The port's parameters from the reference's pytree (nested dicts of
+    arrays, read with ``np.asarray``): the same keys, shapes and dtypes,
+    as tensors on ``device`` (``None`` is the card)."""
+    dev = resolve(device)
+
+    def walk(t):
+        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) else _tensor(t, dev)
+
+    return walk(tree)

@@ -43,6 +43,12 @@ SIGNATURES = {
         "maxplus_bmm": [_P, _P, _P, _I, _I, _I, _I, _P],  # A, B, C, G, M, N, K, stream
         "maxplus_bmv": [_P, _P, _P, _I, _I, _I, _P],      # A, x, y, G, M, K, stream
     },
+    "flash_attention": {
+        # q, k, v, o, is_bf16, B, Hq, Hkv, Sq, Skv, D, strides (b, h, s) of
+        # q, k and v, causal, window, stream
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            *[_I64] * 9, _I, _I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

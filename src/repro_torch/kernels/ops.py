@@ -21,11 +21,14 @@ LAUNCHES = {
     "maxplus_bmm": 0,
     "maxplus_bmv": 0,
     "maxplus_matmul": 0,
+    "flash_attention": 0,
 }
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
 #: single-lambda deadlock probe
 PROBE_COUNTS = (1, 3)
+#: head dims flash_attention.cu instantiates: every GQA config, full or reduced
+FLASH_HEAD_DIMS = (64, 96, 128)
 
 
 def reset_launches() -> None:
@@ -171,3 +174,51 @@ def maxplus_bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "maxplus_bmv")
     LAUNCHES["maxplus_bmv"] += 1
     return y
+
+
+# ======================================================================
+# K6: flash attention
+# ======================================================================
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when every (b, h, s) row starts 16-byte aligned, else an aligned copy."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """(B,Hq,Sq,D) x (B,Hkv,Skv,D) -> (B,Hq,Sq,D) masked softmax attention
+    in q's dtype (see ``ref.attention_ref``).  Sq and Skv may be any length;
+    nothing is padded."""
+    b, hq, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    if _on_cpu(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(
+            f"flash_attention takes float32 or bfloat16 q, k, v of one type, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {FLASH_HEAD_DIMS}, got {d}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention needs a contiguous head dimension")
+    if q.dtype == torch.bfloat16:   # the tensor-core body loads rows as 16-byte vectors
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+    o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    err = _build.library("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, hq, k.shape[1], sq, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), int(window), _stream(q),
+    )
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return o

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Each function computes exactly what its kernel in ``csrc/`` computes, with
-the same rounding: the (max,+) products round one add per term and the
-relaxation rounds ``w - lam*t`` and the add separately, while max is
-exact, so on the same inputs kernel and plain version agree bit for bit.
+Each function computes exactly what its kernel in ``csrc/`` computes.  The
+(max,+) products round one add per term and the relaxation rounds
+``w - lam*t`` and the add separately, while max is exact, so on the same
+inputs kernel and plain version agree bit for bit.  Attention sums in
+another order than its kernel, so the two agree within a stated tolerance.
 :mod:`repro_torch.kernels.ops` routes CPU tensors here; ``chip_smoke.py``
 holds every kernel against these on the card.
 """
@@ -11,6 +12,7 @@ holds every kernel against these on the card.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -18,6 +20,70 @@ NEG_INF = float("-inf")
 
 #: elements of the broadcast (G, M, chunk, N) intermediate per step
 _BMM_CHUNK_ELEMS = 1 << 24
+#: query rows per step of the plain attention: bounds the (Sq, Skv) scores
+_ATTN_CHUNK = 2048
+
+
+# ----------------------------------------------------------------------
+# attention
+# ----------------------------------------------------------------------
+def attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """Masked softmax attention with grouped KV heads, in float32.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); query head ``h`` reads KV
+    head ``h // (Hq // Hkv)``.  Query ``i`` sees key ``j`` when ``i >= j``
+    (``causal``) and ``i - j < window`` (``window > 0``); a row that sees
+    no key gives 0.  Scores, softmax and the weighted sum are float32 and
+    the result has q's dtype.  Queries go in chunks of 2048 rows, so the
+    score tensor stays bounded at long sequence lengths.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    kv_idx = torch.arange(skv, device=q.device)[None, :]
+    outs = []
+    for start in range(0, sq, _ATTN_CHUNK):
+        stop = min(start + _ATTN_CHUNK, sq)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, start:stop].float(), kf) * scale
+        q_idx = torch.arange(start, stop, device=q.device)[:, None]
+        mask = torch.ones((stop - start, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_idx >= kv_idx
+        if window > 0:
+            mask &= (q_idx - kv_idx) < window
+        p = torch.softmax(s.masked_fill_(~mask, NEG_INF), dim=-1)
+        del s
+        p.masked_fill_(torch.isnan(p), 0.0)             # fully masked rows
+        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype))
+        del p
+    return torch.cat(outs, dim=3).reshape(b, hq, sq, d)
+
+
+#: how far a kernel's attention output may lie from :func:`attention_ref`'s,
+#: per element: ``rtol`` of the element (one rounding step of the output
+#: type, since both round a float32 value once) plus ``row_tol`` of the
+#: root mean square of its (b, h, q) row (another float32 summation order,
+#: which moves a row of 4096 keys by about 5e-6 of its size).  Row by row,
+#: because a long causal row averages many values of v and its outputs
+#: shrink with its length.
+ATTN_TOL = {torch.float32: (2.0**-20, 2.0**-14), torch.bfloat16: (2.0**-7, 2.0**-14)}
+
+
+def attention_excess(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """The largest ``|out - plain| / (rtol |plain| + row_tol rms(plain row))``
+    over the elements, with :data:`ATTN_TOL` of ``plain``'s type; ``out``
+    agrees with ``plain`` when it is at most 1."""
+    rtol, row_tol = ATTN_TOL[plain.dtype]
+    ref_f = plain.float()
+    diff = (out.float() - ref_f).abs()
+    limit = rtol * ref_f.abs() + row_tol * ref_f.square().mean(dim=-1, keepdim=True).sqrt()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return float(ratio.max()) if ratio.numel() else 0.0
 
 
 # ----------------------------------------------------------------------

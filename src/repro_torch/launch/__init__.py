@@ -1,0 +1,2 @@
+"""Entry points of the port's LM substrate: the prefill and decode steps and
+the serving entry point (training waits for a later slice)."""

@@ -46,12 +46,14 @@ def _no_nvcc(monkeypatch, tmp_path):
 
 
 def _kernel_calls(dist, lams, csr, a):
+    qkv = torch.zeros((1, 2, 8, 64), device=a.device)
     return (
         lambda: ops.relax_round(dist, lams, csr),
         lambda: ops.relax_round_witness(dist, lams, csr),
         lambda: ops.maxplus_bmm(a, a),
         lambda: ops.maxplus_bmv(a, a[:, 0].contiguous()),
         lambda: ops.maxplus_matmul(a[0], a[0]),
+        lambda: ops.flash_attention(qkv, qkv, qkv),
     )
 
 
@@ -73,6 +75,25 @@ def test_wrappers_reject_devices_without_a_kernel():
     a = torch.zeros((1, 4, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.maxplus_bmm(a, a)
+
+
+def test_flash_attention_rejects_what_its_kernel_does_not_take(monkeypatch):
+    """Checked before the build, so these raise here too (routing forced)."""
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    q = torch.zeros((1, 4, 8, 64))
+    kv = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q[..., :48], kv[..., :48], kv[..., :48])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(TypeError, match="one type"):
+        ops.flash_attention(q, kv.bfloat16(), kv.bfloat16())
+    with pytest.raises(ValueError, match="contiguous head"):
+        ops.flash_attention(q, kv, kv.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.flash_attention(q, kv[:, :, :4], kv)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.flash_attention(q[:, :3], kv, kv)
 
 
 @pytest.mark.cuda
@@ -138,3 +159,54 @@ def test_device_backends_match_host_on_the_card():
     on_host = tengine.batch_execute(app, b, DYNAP_SE_16, ob, with_starts=True, device="cpu")
     np.testing.assert_allclose(on_card.periods, on_host.periods, rtol=1e-8)
     np.testing.assert_allclose(on_card.starts, on_host.starts, rtol=1e-4, atol=1e-4)
+
+
+# ======================================================================
+# K6: flash attention against its plain version
+# ======================================================================
+FLASH_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, causal, window)
+    "causal": (1, 2, 2, 128, 128, 64, True, 0),
+    "ragged_gqa": (2, 4, 2, 200, 200, 64, True, 0),
+    "mqa": (1, 8, 1, 384, 384, 128, True, 0),
+    "d96": (1, 4, 2, 300, 300, 96, True, 0),
+    "window": (1, 4, 2, 384, 384, 128, True, 64),
+    "non_causal_ragged": (2, 4, 4, 130, 130, 64, False, 0),
+    "non_causal_window": (1, 4, 2, 257, 257, 128, False, 100),
+    "sq_ne_skv": (1, 2, 1, 70, 190, 64, True, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_matches_its_plain_version_on_the_card(case, dtype):
+    dev = _need_cuda()
+    b, hq, hkv, sq, skv, d, causal, window = FLASH_CASES[case]
+    gen = torch.Generator(device="cpu").manual_seed(sq * d + hq)
+    q = torch.randn(b, hq, sq, d, generator=gen).to(dev, dtype)
+    k = torch.randn(b, hkv, skv, d, generator=gen).to(dev, dtype)
+    v = torch.randn(b, skv, hkv, d, generator=gen).to(dev, dtype).transpose(1, 2)  # strided
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    plain = tref.attention_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
+    # within one rounding of the output type and 2^-14 of each row's size
+    assert tref.attention_excess(out, plain) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_unaligned_bf16_rows():
+    """The tensor-core body loads 16-byte rows; the wrapper copies inputs
+    whose rows are not aligned so, and the result is unchanged."""
+    dev = _need_cuda()
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    base = torch.randn(3, 1, 4, 100, 72, generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (base[i, :, :, :, 4:68] for i in range(3))   # rows 8 bytes off
+    out = ops.flash_attention(q, k, v, causal=True)
+    plain = tref.attention_ref(q, k, v, causal=True)
+    assert tref.attention_excess(out, plain) <= 1.0
+    aligned = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(out, aligned)

@@ -159,7 +159,8 @@ def test_port_never_imports_jax_or_the_reference(path):
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = (
         "import sys, repro_torch.convert, repro_torch.core.runtime, "
-        "repro_torch.core.explore, repro_torch.core.optimize\n"
+        "repro_torch.core.explore, repro_torch.core.optimize, "
+        "repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
     )
