@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's compile-and-admit and LM serving paths on one GPU.
+"""Drive the PyTorch/CUDA port's compile-and-admit, SNN execution and LM serving
+paths on one GPU.
 
 Run from the repository root:  ``PYTHONPATH=src python3 chip_smoke.py``
 (the script also finds ``src/`` beside itself).  It needs one CUDA device
@@ -31,15 +32,36 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               length with the batch cut from 32 to 1, then starcoder2-3b at
               (1, 8192), whose 4096-token window runs the kernel's window
               branch; each model is freed before the next
-7. kernels    every kernel against its plain PyTorch version on the card, with
+7. snn_crossbar the SNN execution path on HeartClass (24,732 neurons, 2.4M
+              synapses): (a) simulate_spikes on the card, 256 steps, rerun on
+              the host with the same draws (input counts identical, the
+              non-input total within SPIKE_TOTAL_RTOL: the card's atomic adds
+              may reorder sums); (b) the example's path over every cluster of
+              the admission phase's clustering: one 128x128 crossbar block
+              per cluster, 8 samples of rate-0.15 input spikes, 5 K5 steps
+              with spikes fed back, the whole trajectory bit-identical to the
+              plain version and K5 launched n_clusters x 5 times
+8. jamba_serve jamba-v0.1-52b cut to one of its four 8-layer blocks, float32
+              params from seed 0, served at the reference's defaults; the
+              prefill step on the same prompts launches K7 2 x 7 times and K6
+              once; the first Mamba layer's prefill output (K7, combine, K7)
+              held against its token-by-token decode (plain) within
+              MAMBA_CONTEXT_TOL of the decode output's rms
+9. jamba_prefill the same cut in bf16 params at (1, 32768) tokens,
+              prefill_32k's length with the batch cut from 32 to 1
+10. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
-              2-6: K1-K4 bit-identical; flash attention, also at its largest
-              float32 call and its largest windowed call, within
-              kernels/ref.py's ATTN_TOL (per element one rounding step of
-              the output type plus 2^-14 of its row's root mean square);
-              all three flash comparisons are printed before any is checked
+              2-9: K1-K5 bit-identical; flash attention, also at its largest
+              float32 call, its largest windowed call and its largest
+              dense-model prefill call (qwen2-1.5b's 32k, timed against SDPA
+              as the largest is), within kernels/ref.py's ATTN_TOL (per
+              element one rounding step of the output type plus 2^-14 of its
+              row's root mean square); all four flash comparisons are
+              printed before any is checked;
+              K7 within kernels/ref.py's SCAN_TOL at its last largest call
+              (from combined, nonzero chunk states)
 
-Launch counts are set to 0 just before each path's phase (2, 3, 5, 6) and
+Launch counts are set to 0 just before each path's phase (2, 3, 5-9) and
 read just after, and reported per path; launches made to compare or time
 kernels do not count.
 """
@@ -70,6 +92,9 @@ MAXPLUS_TERMS_PER_S = FP32_FLOPS_PER_S / 4
 #: a K1 term dist + (w - lam*t) against the running max is four float64
 #: instructions (DMUL, DADD, DADD, DSETP)
 RELAX_TERMS_PER_S = FP64_FLOPS_PER_S / 8
+#: each of K7's expf issues one MUFU.EX2: 16 a clock per SM, 132 SMs, at the
+#: H100 SXM's 1.98 GHz boost clock (a second bound, beside the table's)
+EX2_PER_S = 132 * 16 * 1.98e9
 
 #: n_tiles_request per app, each between 2 and 16
 REQUESTS = {
@@ -83,6 +108,22 @@ STARCODER2_TOKENS = 8_192
 #: the reference's own decode-vs-forward contract (tests/test_models_smoke.py)
 SERVE_RTOL = SERVE_ATOL = 2e-2
 PROFILED_DECODE_STEPS = 4
+#: the SNN execution path: the largest Table-1 app and the example's inputs
+SNN_APP = "HeartClass"
+SNN_STEPS = 256              # simulate_spikes' default
+CROSSBAR_SAMPLES, CROSSBAR_RATE, CROSSBAR_STEPS = 8, 0.15, 5
+#: simulate_spikes card vs host: the card's index_add_ adds with float
+#: atomics in no fixed order, so a membrane value within an ulp of the
+#: threshold may spike on one side only, and feedback carries it on; the
+#: non-input spike totals may differ by this share
+SPIKE_TOTAL_RTOL = 1e-2
+#: the first Mamba layer's prefill (chunked scan, K7) against its decode
+#: recurrence (plain), float32: at most this share of the decode output's rms
+MAMBA_CONTEXT_TOL = 1e-4
+JAMBA = "jamba-v0.1-52b"
+#: kernels whose largest call is the last of equal size (K7's second launch
+#: of a scan starts from the combined chunk states, not zeros)
+KEEP_LAST_OF_EQUAL = ("mamba_chunk_scan",)
 
 
 def emit(obj) -> None:
@@ -99,6 +140,39 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def crossbar_blocks(cl, size: int = 128):
+    """One dense (size, size) float32 crossbar block per cluster of a
+    ``ClusteredSNN``, as ``examples/snn_on_tpu.py`` builds them: rows are
+    the cluster's distinct presynaptic neurons in increasing id, columns its
+    member neurons in increasing id, and each synapse adds its weight in
+    synapse order.  Returns ``(blocks (n_clusters, size, size), inputs per
+    cluster, members per cluster)``."""
+    import numpy as np
+
+    work, k = cl.snn, cl.n_clusters
+    n = work.n_neurons
+    members = np.bincount(cl.cluster_of, minlength=k)
+    col = np.empty(n, dtype=np.int64)      # a neuron's rank within its cluster
+    starts = np.cumsum(members) - members
+    col[np.lexsort((np.arange(n), cl.cluster_of))] = np.arange(n) - np.repeat(starts, members)
+    syn_cluster = cl.cluster_of[work.post].astype(np.int64)
+    keys, row = np.unique(syn_cluster * n + work.pre, return_inverse=True)
+    first = np.searchsorted(keys, np.arange(k, dtype=np.int64) * n)
+    row = row.reshape(-1) - first[syn_cluster]
+    inputs = np.diff(np.append(first, keys.size))
+    if max(members.max(initial=0), inputs.max(initial=0)) > size:
+        raise ValueError(f"a cluster needs more than {size} crossbar rows or columns")
+    blocks = np.zeros((k, size, size), dtype=np.float32)
+    np.add.at(blocks, (syn_cluster, row, col[work.post]), work.weight.astype(np.float32))
+    return blocks, inputs, members
+
+
+def _leaves(tree):
+    """The tensors of a nested dict of parameters."""
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}; run from a checkout of the repository")
@@ -111,14 +185,18 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
+    import dataclasses
+
     from repro_torch.configs import SHAPES, get_arch
-    from repro_torch.core import apps, engine, maxplus, runtime
+    from repro_torch.core import apps, engine, lif, maxplus, runtime
     from repro_torch.core.hardware import DYNAP_SE_1024, DYNAP_SE_16
     from repro_torch.core.sdfg import sdfg_from_clusters
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import maxplus_bellman as kbell
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import steps as tsteps
+    from repro_torch.models import mamba as tmamba
+    from repro_torch.models.blocks import rms_norm
     from repro_torch.models import transformer as ttf
 
     dev = torch.device("cuda")
@@ -168,7 +246,7 @@ def main() -> None:
     where = {"path": None, "app": None}
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
-    flash_largest = {}                          # "float32" / "windowed" -> the same
+    flash_largest = {}    # "float32" / "windowed" / "lm_prefill" (qwen2's 32k) -> the same
 
     def k1_shape(dist, lams, csr):
         return (dist.shape[0] // csr.n_actors, csr.n_actors, int(csr.src.numel()), dist.shape[1])
@@ -182,13 +260,21 @@ def main() -> None:
         "flash_attention": (("B", "Hq", "Hkv", "Sq", "Skv", "D"),
                             lambda q, k, v, **kw: (*q.shape[:2], k.shape[1], q.shape[2],
                                                    k.shape[2], q.shape[3])),
+        "lif_crossbar_step": (("B", "n_in", "n_out"),
+                              lambda s, w, v, **kw: (*s.shape, w.shape[1])),
+        "mamba_chunk_scan": (("B", "L", "D", "N"),
+                             lambda x, dt, a, b, c, h0, **kw: (*x.shape, a.shape[1])),
     }
 
     def work(name, shape):    # E*K terms for K1, the product of the dims otherwise
         return shape[2] * shape[3] if name.startswith("relax") else math.prod(shape)
 
     def keep_if_larger(table, key, name, shape, args, kwargs):
-        if key not in table or work(name, shape) > table[key]["work"]:
+        if key in table and name in KEEP_LAST_OF_EQUAL:
+            larger = work(name, shape) >= table[key]["work"]
+        else:
+            larger = key not in table or work(name, shape) > table[key]["work"]
+        if larger:
             table[key] = {
                 "work": work(name, shape), "path": where["path"], "app": where["app"],
                 "shape": shape, "kwargs": dict(kwargs), "args": tuple(
@@ -208,6 +294,8 @@ def main() -> None:
                         keep_if_larger(flash_largest, "float32", name, shape, args, kwargs)
                     if kwargs.get("window", 0) > 0:
                         keep_if_larger(flash_largest, "windowed", name, shape, args, kwargs)
+                    if where["path"] == "lm_prefill":
+                        keep_if_larger(flash_largest, "lm_prefill", name, shape, args, kwargs)
             return orig(*args, **kwargs)
 
         setattr(ops, name, call)
@@ -220,10 +308,11 @@ def main() -> None:
     ctl = runtime.AdmissionController(
         DYNAP_SE_1024, optimize_budget=OPTIMIZE_BUDGET, device=dev
     )
-    register_s = {}
+    register_s, snns = {}, {}
     for name in REQUESTS:
         t = time.perf_counter()
-        ctl.register(apps.build_app(name))
+        snns[name] = apps.build_app(name)
+        ctl.register(snns[name])
         register_s[name] = time.perf_counter() - t
     emit({"phase": "register", "apps": {
         name: {"clusters": ctl.artifacts[(name, DYNAP_SE_1024)].clustered.n_clusters,
@@ -500,7 +589,208 @@ def main() -> None:
           "reduced": "batch 1 of prefill_32k's 32 (qwen2-1.5b); starcoder2-3b at 8192 tokens",
           "launches": dict(ops.LAUNCHES), "wall_s": time.perf_counter() - t_phase})
 
-    # -- 7. kernels against their plain versions --------------------------
+    # -- 7. SNN execution path: spike recording and the crossbar steps ---
+    t_phase = time.perf_counter()
+    where.update(path="snn_crossbar", app=SNN_APP)
+    reset()
+    snn = snns[SNN_APP]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    counts_card = lif.simulate_spikes(snn, n_steps=SNN_STEPS, device=dev)
+    sim_card_s = time.perf_counter() - t
+    draws = lif.input_draws(snn.n_neurons, SNN_STEPS, 0, dev).cpu()
+    t = time.perf_counter()
+    counts_host = lif._simulate(*lif.snn_tensors(snn, "cpu"), draws,
+                                params=lif.LIFParams()).numpy().astype(np.float64)
+    sim_host_s = time.perf_counter() - t
+    is_in = snn.layer_of == 0
+    total_card, total_host = counts_card[~is_in].sum(), counts_host[~is_in].sum()
+    sim_rel = abs(total_card - total_host) / max(total_host, 1.0)
+    check(np.array_equal(counts_card[is_in], counts_host[is_in]),
+          "simulate_spikes: input-layer counts differ between card and host")
+    check(total_host > 0 and sim_rel <= SPIKE_TOTAL_RTOL,
+          f"simulate_spikes: non-input totals {total_card} (card) and {total_host} (host)")
+
+    # the example's path over every cluster: one block each, spikes fed back
+    cl = ctl.artifacts[(SNN_APP, DYNAP_SE_1024)].clustered
+    t = time.perf_counter()
+    blocks_np, n_inputs, n_members = crossbar_blocks(cl)
+    build_s = time.perf_counter() - t
+    blocks = torch.as_tensor(blocks_np, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s0 = (torch.rand((cl.n_clusters, CROSSBAR_SAMPLES, blocks.shape[1]), generator=gen,
+                     device=dev) < CROSSBAR_RATE).float()
+    v0 = torch.zeros((cl.n_clusters, CROSSBAR_SAMPLES, blocks.shape[2]), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    finals, fired = [], 0
+    for c in range(cl.n_clusters):
+        s_c, v_c = s0[c], v0[c]
+        for _ in range(CROSSBAR_STEPS):
+            s_c, v_c = ops.lif_crossbar_step(s_c, blocks[c], v_c)
+        finals.append((s_c, v_c))
+    torch.cuda.synchronize()
+    crossbar_s = time.perf_counter() - t
+    snn_launches = dict(ops.LAUNCHES)
+    read_into("snn_crossbar")
+    where.update(path=None, app=None)
+    k5 = snn_launches["lif_crossbar_step"]
+    check(k5 == cl.n_clusters * CROSSBAR_STEPS,
+          f"K5 launched {k5} times, not {cl.n_clusters} clusters x {CROSSBAR_STEPS} steps")
+    # the whole trajectory, all blocks at once through the plain version
+    s_p, v_p = s0, v0
+    for _ in range(CROSSBAR_STEPS):
+        s_p, v_p = ref.lif_crossbar_step_ref(s_p, blocks, v_p)
+    s_k = torch.stack([f[0] for f in finals])
+    v_k = torch.stack([f[1] for f in finals])
+    check(torch.equal(s_k, s_p) and torch.equal(v_k, v_p),
+          "the crossbar trajectory differs from its plain version")
+    emit({"phase": "snn_crossbar", "app": SNN_APP, "neurons": snn.n_neurons,
+          "synapses": snn.n_synapses,
+          "simulate": {"steps": SNN_STEPS, "card_s": sim_card_s, "host_s": sim_host_s,
+                       "input_counts_identical": True,
+                       "non_input_total_card": float(total_card),
+                       "non_input_total_host": float(total_host),
+                       "non_input_total_rel": float(sim_rel),
+                       "limit_rel": SPIKE_TOTAL_RTOL,
+                       "share_of_neurons_equal": float(np.mean(counts_card == counts_host))},
+          "crossbar": {"n_clusters": cl.n_clusters, "samples": CROSSBAR_SAMPLES,
+                       "input_rate": CROSSBAR_RATE, "steps": CROSSBAR_STEPS,
+                       "build_s": build_s, "wall_s": crossbar_s,
+                       "weight_bytes": int(blocks.numel() * blocks.element_size()),
+                       "max_inputs": int(n_inputs.max()), "max_members": int(n_members.max()),
+                       "spikes_out": int(s_k.sum()), "plain_trajectory_identical": True},
+          "launches": snn_launches, "wall_s": time.perf_counter() - t_phase})
+    del blocks, s0, v0, finals, s_k, v_k, s_p, v_p
+
+    # -- 8. jamba's hybrid serving path -----------------------------------
+    # one of jamba's four 8-layer blocks: 1 GQA and 7 Mamba mixers, 4 MoE
+    # and 4 SwiGLU FFNs, every layer at full width
+    t_phase = time.perf_counter()
+    args = tserve.parse_args(["--arch", JAMBA])
+    full_cfg = get_arch(JAMBA)
+    cfg = dataclasses.replace(full_cfg, stacks=((1, full_cfg.stacks[0][1]),))
+    reduced_note = (f"depth: 1 of {JAMBA}'s {full_cfg.stacks[0][0]} blocks "
+                    f"({cfg.n_layers} of {full_cfg.n_layers} layers), widths in full")
+    n_mamba = sum(spec.mixer == "mamba" for _, specs in cfg.stacks for spec in specs)
+    n_gqa = cfg.n_layers - n_mamba
+    where.update(path="jamba_serve", app=cfg.name)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    cfg, params, prompts = tserve.setup(args, dev, cfg=cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    res = tserve.serve(cfg, params, prompts, args.gen_tokens, args.max_len, dev)
+    tokens = torch.as_tensor(prompts, device=dev)
+    before = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    prefill_logits = tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_step_s = time.perf_counter() - t
+    k7 = ops.LAUNCHES["mamba_chunk_scan"] - before["mamba_chunk_scan"]
+    k6 = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+    step = tsteps.make_serve_step(cfg)
+    cache = ttf.init_cache(cfg, args.requests, args.max_len, dtype=torch.float32, device=dev)
+    tok = tokens[:, :1]
+    step(params, cache, tok, 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        for i in range(1, 1 + PROFILED_DECODE_STEPS):
+            step(params, cache, tok, i)
+        torch.cuda.synchronize()
+    decode_us = device_us(prof)
+    decode_busy_ms = sum(decode_us.values()) / 1e3 / PROFILED_DECODE_STEPS
+    del cache, prof
+    jamba_launches = dict(ops.LAUNCHES)
+    serve_combine = ops.COMBINE_LAUNCHES["mamba_scan"]
+    read_into("jamba_serve")
+    where.update(path=None, app=None)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(res.tokens.shape == (args.requests, args.gen_tokens)
+          and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(), "jamba: bad generated tokens")
+    check(prefill_logits.shape == (args.requests, args.prompt_len, cfg.vocab)
+          and bool(torch.isfinite(prefill_logits).all()), "jamba: prefill logits not finite")
+    check(k7 == 2 * n_mamba and k6 == n_gqa,
+          f"jamba's prefill step launched K7 {k7} and K6 {k6} times, not {2 * n_mamba} and {n_gqa}")
+    # K7 in context: the first Mamba layer's prefill against its decode
+    check(cfg.stacks[0][1][0].mixer == "mamba", "jamba's layer 0 is not a Mamba layer")
+
+    def first(tree):    # repeat 0 of a stacked layer's parameters
+        return {k: first(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[0]
+
+    lp = first(params["stack0"]["l0"])
+    with torch.no_grad():
+        # the layer's input in float32: the decode casts its scan output to
+        # the input's type, which in bf16 would round what the prefill keeps
+        h_in = rms_norm(lp["norm1"], params["embed"][tokens].to(cfg.activation_dtype)).float()
+        out_prefill = tmamba.mamba_forward(lp["mixer"], h_in, cfg)
+        state = tmamba.mamba_init_state(cfg, args.requests, device=dev)
+        out_decode = torch.cat([tmamba.mamba_decode(lp["mixer"], h_in[:, i:i + 1], state, cfg)[0]
+                                for i in range(args.prompt_len)], dim=1)
+    context_err = float((out_prefill.float() - out_decode.float()).abs().max())
+    context_rms = float(out_decode.float().square().mean().sqrt())
+    context_ratio = context_err / (MAMBA_CONTEXT_TOL * context_rms)
+    check(context_ratio <= 1.0,
+          f"the first Mamba layer's prefill differs from its decode by {context_err} "
+          f"(rms {context_rms}, limit {MAMBA_CONTEXT_TOL} of it)")
+    emit({"phase": "jamba_serve", "arch": cfg.name, "reduced": reduced_note,
+          "layers": cfg.n_layers, "mamba_layers": n_mamba, "gqa_layers": n_gqa,
+          "params": sum(t.numel() for t in _leaves(params)), "params_dtype": "float32",
+          "activation_dtype": str(cfg.activation_dtype), "requests": args.requests,
+          "prompt_len": args.prompt_len, "gen_tokens": args.gen_tokens, "max_len": args.max_len,
+          "setup_s": setup_s, "prefill_teacher_forced_s": res.prefill_s,
+          "decode_s": res.decode_s, "decode_tokens_per_s": res.tokens_per_s,
+          "decode_step_ms": 1e3 * res.decode_s / args.gen_tokens,
+          "decode_step_device_busy_ms": decode_busy_ms,
+          "decode_device_busy_share": decode_busy_ms / (1e3 * res.decode_s / args.gen_tokens),
+          "decode_top_device_us": sorted(decode_us.items(), key=lambda kv: -kv[1])[:6],
+          "prefill_step_s": prefill_step_s, "prefill_step_k7_launches": k7,
+          "prefill_step_k6_launches": k6,
+          "mamba_context": {"max_abs_err": context_err, "decode_rms": context_rms,
+                            "tol": MAMBA_CONTEXT_TOL, "tol_ratio": context_ratio},
+          "sample": res.tokens[0][:16].tolist(), "launches": jamba_launches,
+          "combine_launches": serve_combine, "peak_gib": peak_gib,
+          "wall_s": time.perf_counter() - t_phase})
+    del params, res, prefill_logits, lp, h_in, out_prefill, out_decode, state
+    torch.cuda.empty_cache()
+
+    # -- 9. jamba's bf16 prefill at full length -----------------------------
+    t_phase = time.perf_counter()
+    where.update(path="jamba_prefill", app=cfg.name)
+    seq = SHAPES["prefill_32k"]["seq_len"]
+    reset()
+    params = ttf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=cfg.activation_dtype)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (1, seq)), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    logits = tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prefill_launches = dict(ops.LAUNCHES)
+    combine = ops.COMBINE_LAUNCHES["mamba_scan"]
+    read_into("jamba_prefill")
+    where.update(path=None, app=None)
+    check(prefill_launches["flash_attention"] == n_gqa
+          and prefill_launches["mamba_chunk_scan"] == 2 * n_mamba,
+          f"jamba's bf16 prefill launched K6 {prefill_launches['flash_attention']} and K7 "
+          f"{prefill_launches['mamba_chunk_scan']} times")
+    check(logits.shape == (1, seq, cfg.vocab) and logits.dtype == cfg.activation_dtype,
+          f"jamba: logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "jamba: bf16 prefill logits not finite")
+    emit({"phase": "jamba_prefill", "arch": cfg.name, "tokens": [1, seq],
+          "reduced": reduced_note + "; batch 1 of prefill_32k's 32",
+          "params_dtype": str(cfg.activation_dtype), "wall_s_prefill": wall,
+          "tokens_per_s": seq / wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "combine_launches": combine, "launches": prefill_launches,
+          "wall_s": time.perf_counter() - t_phase})
+    del params, tokens, logits
+    torch.cuda.empty_cache()
+
+    # -- 10. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card
@@ -566,7 +856,7 @@ def main() -> None:
             check(tol_ratio <= 1.0, f"{name} is {tol_ratio} times its tolerance")
 
     for name in shape_of:
-        check(name in largest, f"{name} was never called on the card by phases 2-3")
+        check(name in largest, f"{name} was never called on the card by phases 2-9")
 
     # K1 on the inputs of its largest admission call (HeartClass's stack)
     for name, plain_fn in (("relax_round", ref.segment_relax_ref),
@@ -642,8 +932,8 @@ def main() -> None:
             "tolerance": {"rtol": rtol, "row_tol": row_tol},
         }, (q, k, v, kw, *flash_work(q, k, **kw))
 
-    for key in ("float32", "windowed"):
-        check(key in flash_largest, f"flash attention had no {key} call in phases 5-6")
+    for key in ("float32", "windowed", "lm_prefill"):
+        check(key in flash_largest, f"flash attention had no {key} call in phases 5-9")
     cases = {key: flash_case(key, call) for key, call in
              (("largest", largest["flash_attention"]), *flash_largest.items())}
     emit({"phase": "flash_checks", "checks": [row for row, _ in cases.values()]})
@@ -651,16 +941,13 @@ def main() -> None:
         check(row["tol_ratio"] <= 1.0,
               f"flash attention ({key} call) is {row['tol_ratio']} times its tolerance "
               f"(max abs err {row['max_abs_err']})")
-    for key in ("float32", "windowed"):
-        row, (q, k, v, kw, nbytes, flops, peak) = cases[key]
-        row.update(ms=timed(lambda: ops.flash_attention(q, k, v, **kw)),
-                   plain_ms=timed(lambda: ref.attention_ref(q, k, v, **kw)),
-                   bound_ms=bound(nbytes, flops, peak)[0])
-    row, (q, k, v, kw, nbytes, flops, peak) = cases["largest"]
-    # the library yardstick, timed here only: PyTorch's flash backend (its
-    # math backend would materialise the (Sq, Skv) scores)
-    sdpa, sdpa_error = None, None
-    if kw["causal"] and not kw["window"]:
+    def sdpa_for(q, k, v, kw):
+        """The library yardstick, timed here only: PyTorch's flash backend
+        (its math backend would materialise the (Sq, Skv) scores); (None,
+        why) where it takes no such call."""
+        if not kw["causal"] or kw["window"]:
+            return None, "no causal unwindowed SDPA call computes this mask"
+
         def sdpa():
             with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
@@ -668,7 +955,19 @@ def main() -> None:
             sdpa()
             torch.cuda.synchronize()
         except RuntimeError as e:     # no flash backend for this call: no yardstick
-            sdpa, sdpa_error = None, str(e).splitlines()[0][:300]
+            return None, str(e).splitlines()[0][:300]
+        return sdpa, None
+
+    for key in ("float32", "windowed", "lm_prefill"):
+        row, (q, k, v, kw, nbytes, flops, peak) = cases[key]
+        sdpa, sdpa_error = sdpa_for(q, k, v, kw)
+        row.update(ms=timed(lambda: ops.flash_attention(q, k, v, **kw)),
+                   plain_ms=timed(lambda: ref.attention_ref(q, k, v, **kw)),
+                   bound_ms=bound(nbytes, flops, peak)[0],
+                   library_ms=timed(sdpa) if sdpa is not None else None,
+                   library_error=sdpa_error)
+    row, (q, k, v, kw, nbytes, flops, peak) = cases["largest"]
+    sdpa, sdpa_error = sdpa_for(q, k, v, kw)
     record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:130",
            lambda: ops.flash_attention(q, k, v, **kw), lambda: ref.attention_ref(q, k, v, **kw),
@@ -677,6 +976,61 @@ def main() -> None:
            library_call="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
                         "flash backend", library_error=sdpa_error)
     del q, k, v, cases
+
+    # K5 on the inputs of its largest call (the example's (8,128)x(128,128))
+    s_in, w_in, v_in = largest["lif_crossbar_step"]["args"]
+    kw5 = largest["lif_crossbar_step"]["kwargs"]
+    (ks, kv), (ps, pv) = (ops.lif_crossbar_step(s_in, w_in, v_in, **kw5),
+                          ref.lif_crossbar_step_ref(s_in, w_in, v_in, **kw5))
+    b5, n_in5 = s_in.shape
+    n_out5 = w_in.shape[1]
+    record("lif_crossbar_step", "src/repro_torch/csrc/lif_crossbar.cu",
+           "src/repro/kernels/lif_crossbar.py:87",
+           lambda: ops.lif_crossbar_step(s_in, w_in, v_in, **kw5),
+           lambda: ref.lif_crossbar_step_ref(s_in, w_in, v_in, **kw5),
+           max(max_abs_err(ks, ps), max_abs_err(kv, pv)),
+           # s, W and v in; spikes and v out; a multiply-add per term
+           (s_in.numel() + w_in.numel() + 3 * v_in.numel()) * 4, 2 * b5 * n_in5 * n_out5,
+           FP32_FLOPS_PER_S,
+           library_note="none: no single PyTorch call computes a product fused "
+                        "with the threshold and reset")
+
+    # K7 on the inputs of its last largest call (jamba's bf16 32k prefill,
+    # a second launch: from the combined chunk states)
+    x7, dt7, a7, b7, c7, h07 = largest["mamba_chunk_scan"]["args"]
+    chunk7 = largest["mamba_chunk_scan"]["kwargs"].get("chunk", 128)
+    (ky, kh), (py, ph) = (ops.mamba_chunk_scan(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
+                          ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, h07, chunk=chunk7))
+    y_ratio = ref.scan_excess(ky, py, chunk7)
+    rtol7, row_tol7 = ref.SCAN_TOL[torch.float32]
+    h_rms = ph.square().mean(dim=-1, keepdim=True).sqrt()
+    h_diff = (kh - ph).abs()
+    h_ratio = float(torch.where(h_diff == 0, torch.zeros_like(h_diff),
+                                h_diff / (rtol7 * ph.abs() + row_tol7 * h_rms)).max())
+    y_err, h_err = max_abs_err(ky, py), max_abs_err(kh, ph)
+    del ky, kh, py, ph, h_rms, h_diff
+    bsz7, len7, d7 = x7.shape
+    n7 = a7.shape[1]
+    terms7 = bsz7 * len7 * d7 * n7
+    # x, dt and y; B and C; a; h0 and h_out
+    nbytes7 = (3 * x7.numel() + 2 * b7.numel()) * x7.element_size() + a7.numel() * 4 \
+        + 2 * h07.numel() * 4
+    record("mamba_chunk_scan", "src/repro_torch/csrc/mamba_scan.cu",
+           "src/repro/kernels/mamba_scan.py:96",
+           lambda: ops.mamba_chunk_scan(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
+           lambda: ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
+           max(y_err, h_err),
+           # per (b, t, d, n) term seven float32 operations: dt*a, exp, decay*h,
+           # (dt*x)*B, the add, h*C and the sum's add (dt*x is per (b, t, d))
+           nbytes7, 7 * terms7 + bsz7 * len7 * d7, FP32_FLOPS_PER_S,
+           tol_ratio=max(y_ratio, h_ratio),
+           tolerance={"rtol": ref.SCAN_TOL[x7.dtype][0], "row_tol": ref.SCAN_TOL[x7.dtype][1],
+                      "state_rtol": rtol7, "state_row_tol": row_tol7},
+           y_tol_ratio=y_ratio, state_tol_ratio=h_ratio, y_max_abs_err=y_err,
+           state_max_abs_err=h_err, dtype=str(x7.dtype).split(".")[-1], chunk=chunk7,
+           expf=terms7, expf_bound_ms=1e3 * terms7 / EX2_PER_S,
+           library_note="none: no single PyTorch call computes a selective scan")
+    del x7, dt7, a7, b7, c7, h07
 
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} never launched on the main path")

@@ -1,0 +1,119 @@
+"""LIF simulator, the repo's CARLsim analogue (workflow Fig. 2): the port of
+``repro.core.lif``.
+
+Simulates the SNN for ``n_steps`` discrete timesteps with Poisson-encoded
+input on layer 0 and leaky-integrate-and-fire dynamics everywhere else, and
+records per-neuron spike counts.  Those counts feed the partitioner exactly
+like the CARLsim recordings in the paper (§2.4).
+
+The synaptic accumulate (``I[post] += w * s[pre]``) is an ``index_add_``
+over the synapse list (on the card its float atomics may add in another
+order from run to run); the *clustered* execution path (dense 128x128
+crossbar blocks) is K5, ``kernels.ops.lif_crossbar_step``.
+
+The reference draws its Poisson input with ``jax.random``, which PyTorch
+cannot reproduce: :func:`_simulate` takes the uniform draws themselves, and
+:func:`simulate_spikes` makes them from ``torch.Generator(device)`` seeded
+with ``seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from .snn import SNN
+
+
+@dataclasses.dataclass(frozen=True)
+class LIFParams:
+    v_threshold: float = 1.0
+    v_reset: float = 0.0
+    leak: float = 0.9           # membrane decay per step
+    refractory: int = 2         # steps
+    input_rate: float = 0.08    # Poisson rate per input neuron per step
+
+
+@torch.no_grad()
+def _simulate(
+    pre: torch.Tensor,
+    post: torch.Tensor,
+    weight: torch.Tensor,
+    is_input: torch.Tensor,
+    draws: torch.Tensor,
+    *,
+    params: LIFParams,
+) -> torch.Tensor:
+    """Run LIF dynamics; returns per-neuron spike counts (float32).
+
+    pre, post: (n_synapses,) int64; weight: (n_synapses,) float32;
+    is_input: (n_neurons,) bool; draws: (n_steps, n_neurons) uniform [0, 1)
+    float32, step t's input neuron i spiking where ``draws[t, i] <
+    input_rate``.  All on one device.
+    """
+    n_steps, n = draws.shape
+    dev = weight.device
+    v = torch.zeros((n,), dtype=weight.dtype, device=dev)
+    refr = torch.zeros((n,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n,), dtype=weight.dtype, device=dev)
+    not_input = ~is_input
+    for t in range(n_steps):
+        in_spike = (draws[t] < params.input_rate) & is_input
+        fired = ((v >= params.v_threshold) & (refr <= 0) & not_input) | in_spike
+        s = fired.to(weight.dtype)
+        i_syn = torch.zeros_like(v).index_add_(0, post, weight * s[pre])
+        v = torch.where(fired, params.v_reset, v * params.leak) \
+            + torch.where(is_input, 0.0, i_syn)
+        refr = torch.where(fired, params.refractory, torch.clamp_min(refr - 1, 0)).to(torch.int32)
+        counts += s
+    return counts
+
+
+def simulate_spikes(
+    snn: SNN,
+    *,
+    n_steps: int = 256,
+    params: LIFParams = LIFParams(),
+    seed: int = 0,
+    device=None,
+) -> np.ndarray:
+    """Record per-neuron spike counts for one application iteration
+    (float64, host).  ``device=None`` is the card."""
+    dev = resolve(device)
+    draws = input_draws(snn.n_neurons, n_steps, seed, dev)
+    counts = _simulate(*snn_tensors(snn, dev), draws, params=params)
+    return counts.cpu().numpy().astype(np.float64)
+
+
+def input_draws(n_neurons: int, n_steps: int, seed: int, device) -> torch.Tensor:
+    """The (n_steps, n_neurons) float32 uniform draws of :func:`simulate_spikes`,
+    from ``torch.Generator(device)`` seeded with ``seed``."""
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((n_steps, n_neurons), generator=gen, dtype=torch.float32, device=dev)
+
+
+def snn_tensors(snn: SNN, device):
+    """(pre, post, weight, is_input) of ``snn`` on ``device``, as the
+    simulator takes them: excitatory-biased weights ``|w| / 2`` so that
+    activity propagates through rate-coded nets, and layer 0 as input."""
+    dev = resolve(device)
+    w = np.abs(snn.weight) * 0.5
+    return (
+        torch.as_tensor(snn.pre, dtype=torch.int64, device=dev),
+        torch.as_tensor(snn.post, dtype=torch.int64, device=dev),
+        torch.as_tensor(w, dtype=torch.float32, device=dev),
+        torch.as_tensor(snn.layer_of == 0, device=dev),
+    )
+
+
+def with_simulated_spikes(snn: SNN, **kw) -> SNN:
+    """Return a copy of ``snn`` whose spike counts come from LIF simulation."""
+    counts = simulate_spikes(snn, **kw)
+    # Guard: the partitioner needs strictly nonnegative rates; keep tiny floor
+    # so channels exist wherever synapses exist.
+    counts = np.maximum(counts, 1e-3)
+    return dataclasses.replace(snn, spikes=counts)

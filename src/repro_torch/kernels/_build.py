@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 
 #: source stem -> {C function: argtypes}; every function returns cudaError_t
 SIGNATURES = {
@@ -48,6 +49,14 @@ SIGNATURES = {
         # q, k and v, causal, window, stream
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             *[_I64] * 9, _I, _I, _P],
+    },
+    "lif_crossbar": {
+        # s, w, v, out_s, out_v, B, n_in, n_out, leak, v_th, v_reset, stream
+        "lif_crossbar_step": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    },
+    "mamba_scan": {
+        # x, dt, a, b, c, h0, y, h_out, is_bf16, B, L, D, N, chunk, stream
+        "mamba_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

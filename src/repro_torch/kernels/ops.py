@@ -22,19 +22,32 @@ LAUNCHES = {
     "maxplus_bmv": 0,
     "maxplus_matmul": 0,
     "flash_attention": 0,
+    "lif_crossbar_step": 0,
+    "mamba_chunk_scan": 0,
 }
+
+#: device operations the chunk combine of :func:`mamba_scan` issued on a
+#: CUDA tensor since the last :func:`reset_launches` (plain PyTorch, not a kernel)
+COMBINE_LAUNCHES = {"mamba_scan": 0}
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
 #: single-lambda deadlock probe
 PROBE_COUNTS = (1, 3)
 #: head dims flash_attention.cu instantiates: every GQA config, full or reduced
 FLASH_HEAD_DIMS = (64, 96, 128)
+#: state sizes mamba_scan.cu instantiates: every Mamba config's 16 and the
+#: reference's tests' 8
+SCAN_STATES = (8, 16)
+#: the scan kernel stages a chunk's B and C (2 * chunk * N float32) in at
+#: most 48 KB of shared memory
+SCAN_SMEM_BYTES = 48 * 1024
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    COMBINE_LAUNCHES["mamba_scan"] = 0
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -222,3 +235,109 @@ def flash_attention(
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o
+
+
+# ======================================================================
+# K5: fused LIF crossbar step
+# ======================================================================
+def lif_crossbar_step(
+    spikes: torch.Tensor, weights: torch.Tensor, v: torch.Tensor,
+    *, leak: float = 0.9, v_th: float = 1.0, v_reset: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One crossbar step: (B, n_in) spikes x (n_in, n_out) weights with
+    membrane state (B, n_out) -> ``(out_spikes, v_next)`` (see
+    ``ref.lif_crossbar_step_ref``).  Any B, n_in and n_out; nothing is padded."""
+    b, n_in = spikes.shape
+    if weights.shape[0] != n_in or v.shape != (b, weights.shape[1]):
+        raise ValueError(
+            f"shape mismatch: spikes {tuple(spikes.shape)}, weights "
+            f"{tuple(weights.shape)}, v {tuple(v.shape)}"
+        )
+    if _on_cpu(spikes, weights, v):
+        return ref.lif_crossbar_step_ref(spikes, weights, v, leak=leak, v_th=v_th, v_reset=v_reset)
+    for t, name in ((spikes, "spikes"), (weights, "weights"), (v, "v")):
+        _check(t, torch.float32, name)
+    out_s, out_v = torch.empty_like(v), torch.empty_like(v)
+    if out_v.numel() == 0:
+        return out_s, out_v
+    err = _build.library("lif_crossbar").lif_crossbar_step(
+        spikes.data_ptr(), weights.data_ptr(), v.data_ptr(), out_s.data_ptr(),
+        out_v.data_ptr(), b, n_in, weights.shape[1], leak, v_th, v_reset, _stream(v),
+    )
+    _raise_on(err, "lif_crossbar_step")
+    LAUNCHES["lif_crossbar_step"] += 1
+    return out_s, out_v
+
+
+# ======================================================================
+# K7: chunked selective scan
+# ======================================================================
+def mamba_chunk_scan(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    c: torch.Tensor, h0: torch.Tensor, *, chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan every ``chunk`` steps of (B, L, D) x and dt with (D, N) a and
+    (B, L, N) b, c from the chunks' initial states h0 (B, ceil(L/chunk),
+    D, N) -> ``(y, h_final)`` (see ``ref.mamba_chunk_scan_ref``).  L need not
+    be a multiple of ``chunk``; nothing is padded."""
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    nc = -(-length // chunk)
+    if (dt.shape != x.shape or a.shape != (d, n) or b.shape != (bsz, length, n)
+            or c.shape != b.shape or h0.shape != (bsz, nc, d, n)):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+            f"b {tuple(b.shape)}, c {tuple(c.shape)}, h0 {tuple(h0.shape)} at chunk {chunk}"
+        )
+    if _on_cpu(x, dt, a, b, c, h0):
+        return ref.mamba_chunk_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mamba_chunk_scan takes float32 or bfloat16 x, got {x.dtype}")
+    for t, name in ((x, "x"), (dt, "dt"), (b, "b"), (c, "c")):
+        _check(t, x.dtype, name)
+    _check(a, torch.float32, "a")
+    _check(h0, torch.float32, "h0")
+    if n not in SCAN_STATES:
+        raise ValueError(f"mamba_chunk_scan takes state sizes {SCAN_STATES}, got {n}")
+    if chunk < 1 or 2 * chunk * n * 4 > SCAN_SMEM_BYTES:
+        raise ValueError(f"mamba_chunk_scan takes 1 <= chunk <= "
+                         f"{SCAN_SMEM_BYTES // (8 * n)} at N = {n}, got {chunk}")
+    y = torch.empty_like(x)
+    h_out = torch.empty_like(h0)
+    if y.numel() == 0:
+        return y, h_out
+    err = _build.library("mamba_scan").mamba_chunk_scan(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), int(x.dtype == torch.bfloat16),
+        bsz, length, d, n, chunk, _stream(x),
+    )
+    _raise_on(err, "mamba_chunk_scan")
+    LAUNCHES["mamba_chunk_scan"] += 1
+    return y, h_out
+
+
+def mamba_scan(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    c: torch.Tensor, *, chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence S6 scan from a zero state, ``(y (B, L, D),
+    h_final (B, D, N))``, in the reference's three steps: the chunk scan
+    from zero states, the chunk combine
+    ``H_init(c) = Decay(c-1) * H_init(c-1) + S_local(c-1)`` (plain PyTorch,
+    a loop over the chunks), and the chunk scan again from ``H_init``."""
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    nc = -(-length // chunk)
+    zeros = torch.zeros((bsz, nc, d, n), dtype=torch.float32, device=x.device)
+    _, s_local = mamba_chunk_scan(x, dt, a, b, c, zeros, chunk=chunk)
+    # the decay over each complete chunk before the last: exp(a * sum of dt)
+    full = (nc - 1) * chunk
+    dt_sum = dt[:, :full].reshape(bsz, nc - 1, chunk, d).sum(dim=2, dtype=torch.float32)
+    decay = torch.exp(dt_sum[..., None] * a.float())
+    h_init = torch.zeros_like(zeros)
+    for ci in range(1, nc):
+        torch.addcmul(s_local[:, ci - 1], decay[:, ci - 1], h_init[:, ci - 1], out=h_init[:, ci])
+    if x.is_cuda:
+        COMBINE_LAUNCHES["mamba_scan"] += 4 + (nc - 1)   # zeros, sum, mul, exp; a step each
+    y, h_fin = mamba_chunk_scan(x, dt, a, b, c, h_init, chunk=chunk)
+    return y, h_fin[:, -1]

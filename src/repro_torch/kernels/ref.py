@@ -2,9 +2,11 @@
 
 Each function computes exactly what its kernel in ``csrc/`` computes.  The
 (max,+) products round one add per term and the relaxation rounds
-``w - lam*t`` and the add separately, while max is exact, so on the same
-inputs kernel and plain version agree bit for bit.  Attention sums in
-another order than its kernel, so the two agree within a stated tolerance.
+``w - lam*t`` and the add separately, while max is exact; the LIF crossbar
+step adds its products in increasing k; so on the same inputs kernel and
+plain version agree bit for bit.  Attention sums in another order than its
+kernel, and the chunk scan's ``exp`` may differ from the kernel's ``expf``
+by an ulp, so those two agree within a stated tolerance.
 :mod:`repro_torch.kernels.ops` routes CPU tensors here; ``chip_smoke.py``
 holds every kernel against these on the card.
 """
@@ -182,3 +184,131 @@ def segment_relax_witness_ref(
     psrc = torch.full(dist.shape, -1, dtype=torch.int64, device=dist.device)
     psrc.scatter_reduce_(0, idx, tagged, "amax", include_self=True)
     return best, psrc
+
+
+# ----------------------------------------------------------------------
+# fused LIF crossbar step
+# ----------------------------------------------------------------------
+def lif_crossbar_step_ref(
+    spikes: torch.Tensor, weights: torch.Tensor, v: torch.Tensor,
+    *, leak: float = 0.9, v_th: float = 1.0, v_reset: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Crossbar current and LIF update: ``(out_spikes, v_next)``.
+
+    ``i = s @ W`` in float32, accumulated over ``n_in`` in increasing k
+    order, one rounded product and one rounded add per k; then
+    ``v' = leak*v + i``, ``spike = v' >= v_th``, ``v_next = v_reset`` where
+    it spiked and ``v'`` elsewhere.  ``leak``, ``v_th`` and ``v_reset`` are
+    float32 constants, as JAX makes a weak-typed Python float.  Spikes come
+    back in the spikes' dtype.  The fixed k order is what the CUDA kernel
+    repeats, so the two agree bit for bit.  s (..., B, n_in), W (...,
+    n_in, n_out) and v (..., B, n_out) may share leading dimensions: a
+    stack of blocks, each the same as its own call.
+    """
+    s = spikes.float()
+    w = weights.float()
+    acc = torch.zeros(v.shape, dtype=torch.float32, device=s.device)
+    for k in range(w.shape[-2]):
+        acc = acc + s[..., k, None] * w[..., k, None, :]
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=s.device)
+
+    v_new = f32(leak) * v.float() + acc
+    fired = v_new >= f32(v_th)
+    out_v = torch.where(fired, f32(v_reset), v_new)
+    return fired.to(spikes.dtype), out_v.to(v.dtype)
+
+
+# ----------------------------------------------------------------------
+# chunked selective (S6) scan
+# ----------------------------------------------------------------------
+def mamba_chunk_scan_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    c: torch.Tensor, h0: torch.Tensor, *, chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan every chunk of ``chunk`` steps from its own initial state.
+
+    x, dt: (B, L, D); a: (D, N) float32; b, c: (B, L, N); h0:
+    (B, ceil(L/chunk), D, N) float32.  Per step, in float32:
+    ``h = exp(dt*a) * h + (dt*x) * b_t`` and ``y_t = sum_n h[:, n] * c_t[n]``
+    summed in increasing n.  Returns ``(y, h_final)``: y (B, L, D) in x's
+    dtype and each chunk's final state (B, n_chunks, D, N) float32.  Steps
+    past L (the last chunk's ragged end) leave the state unchanged.
+    """
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    nc = -(-length // chunk)
+    if tuple(h0.shape) != (bsz, nc, d, n):
+        raise ValueError(f"h0 must be {(bsz, nc, d, n)}, got {tuple(h0.shape)}")
+    pad = nc * chunk - length
+
+    def chunks(t):   # (B, L, W) -> (chunk, B, nc, W) float32, zero past L
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+        return t.reshape(bsz, nc, chunk, t.shape[-1]).permute(2, 0, 1, 3)
+
+    xs, dts, bs, cs = chunks(x), chunks(dt), chunks(b), chunks(c)
+    a = a.float()
+    h = h0.float().clone()
+    ys = []
+    for t in range(chunk):
+        dt_t = dts[t][..., None]                          # (B, nc, D, 1)
+        h = torch.exp(dt_t * a) * h + (dts[t] * xs[t])[..., None] * bs[t][:, :, None, :]
+        prod = h * cs[t][:, :, None, :]
+        y = prod[..., 0]
+        for k in range(1, n):
+            y = y + prod[..., k]
+        ys.append(y)
+    y = torch.stack(ys, dim=2).reshape(bsz, nc * chunk, d)[:, :length]
+    return y.to(x.dtype), h
+
+
+def mamba_scan_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    c: torch.Tensor, h0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequential S6 scan over the whole sequence, the oracle of the
+    chunked form: ``(y (B, L, D) in x's dtype, h_final (B, D, N) float32)``
+    from ``h0`` (zeros when None)."""
+    bsz, length, d = x.shape
+    a = a.float()
+    h = (torch.zeros((bsz, d, a.shape[1]), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(length):
+        dt_t = dt[:, t].float()
+        h = torch.exp(dt_t[..., None] * a) * h + (dt_t * x[:, t].float())[..., None] \
+            * b[:, t, None, :].float()
+        ys.append((h * c[:, t, None, :].float()).sum(dim=-1))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros((bsz, 0, d), device=x.device)
+    return y.to(x.dtype), h
+
+
+#: how far a kernel's scan output may lie from :func:`mamba_chunk_scan_ref`'s,
+#: per element: ``rtol`` of the element (one rounding of the output type:
+#: the kernel's ``expf`` and the plain version's ``torch.exp`` may differ
+#: by an ulp, and a float32 difference that small can flip the rounding to
+#: bf16) plus ``row_tol`` of the root mean square of its (b, chunk,
+#: channel) row (an ulp of a decay carried through the chunk's 128 steps
+#: moves the state by about 128 * 2^-24 of its size, about 2^-17).
+SCAN_TOL = {torch.float32: (2.0**-20, 2.0**-14), torch.bfloat16: (2.0**-7, 2.0**-14)}
+
+
+def scan_excess(out: torch.Tensor, plain: torch.Tensor, chunk: int) -> float:
+    """The largest ``|out - plain| / (rtol |plain| + row_tol rms(row))`` over
+    the elements of a (B, L, D) scan output, rows being the ``chunk`` steps
+    of one (b, chunk, channel), with :data:`SCAN_TOL` of ``plain``'s type;
+    at most 1 means ``out`` agrees with ``plain``."""
+    rtol, row_tol = SCAN_TOL[plain.dtype]
+    bsz, length, d = plain.shape
+    nc = -(-length // chunk)
+    ref_f = plain.float()
+    sq = torch.nn.functional.pad(ref_f.square(), (0, 0, 0, nc * chunk - length))
+    counts = torch.full((nc,), float(chunk), device=plain.device)
+    counts[-1] = length - (nc - 1) * chunk
+    rms = (sq.reshape(bsz, nc, chunk, d).sum(dim=2) / counts[None, :, None]).sqrt()
+    rms = rms.repeat_interleave(chunk, dim=1)[:, :length]
+    diff = (out.float() - ref_f).abs()
+    limit = rtol * ref_f.abs() + row_tol * rms
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return float(ratio.max()) if ratio.numel() else 0.0

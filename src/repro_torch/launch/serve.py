@@ -87,11 +87,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace, dev: torch.device):
-    """(cfg, float32 params from seed 0, prompts from ``default_rng(0)``)."""
-    cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = reduced(cfg)
+def setup(args: argparse.Namespace, dev: torch.device, cfg: Optional[ArchConfig] = None):
+    """(cfg, float32 params from seed 0, prompts from ``default_rng(0)``);
+    ``cfg`` replaces ``--arch``'s config (a depth cut of it, say)."""
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.smoke:
+            cfg = reduced(cfg)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(args.requests, args.prompt_len))
     return cfg, params, prompts

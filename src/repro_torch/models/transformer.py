@@ -14,8 +14,9 @@ also lets the residual stream change type between layers, as the
 reference's unrolled stacks do: with bf16 activations and float32 weights
 the first layer's ``x + h`` promotes the stream to float32.
 
-This slice ports the ``gqa`` mixer and the ``swiglu``/``gelu`` FFNs.  The
-``mla``, ``mamba``, ``mlstm``/``slstm`` mixers and ``moe`` FFNs raise
+The port has the ``gqa`` and ``mamba`` mixers and the ``swiglu``,
+``gelu`` and ``moe`` FFNs: every layer kind of the dense GQA models and of
+jamba.  The ``mla`` and ``mlstm``/``slstm`` mixers raise
 ``NotImplementedError``; they wait for later slices (ROADMAP.md, module
 queue 9).  ``logical_shard`` is the identity on one card and is left out.
 """
@@ -26,6 +27,8 @@ import torch
 
 from ..configs.base import ArchConfig, LayerSpec
 from . import attention as attn
+from . import mamba as mam
+from . import moe as moe_mod
 from .blocks import (
     gelu_ffn,
     init_gelu_ffn,
@@ -38,8 +41,8 @@ from .blocks import (
     truncated_normal,
 )
 
-_MIXERS = ("gqa",)
-_FFNS = ("swiglu", "gelu", "none")
+_MIXERS = ("gqa", "mamba")
+_FFNS = ("swiglu", "gelu", "moe", "none")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -57,11 +60,14 @@ def _check_ported(cfg: ArchConfig) -> None:
 # parameter init
 # ======================================================================
 def _init_layer(gen, spec: LayerSpec, cfg: ArchConfig, stack, dtype):
-    p: dict = {"mixer": attn.init_gqa(gen, cfg, stack=stack, dtype=dtype)}
+    init_mixer = attn.init_gqa if spec.mixer == "gqa" else mam.init_mamba
+    p: dict = {"mixer": init_mixer(gen, cfg, stack=stack, dtype=dtype)}
     if spec.ffn == "swiglu":
         p["ffn"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, stack=stack, dtype=dtype)
     elif spec.ffn == "gelu":
         p["ffn"] = init_gelu_ffn(gen, cfg.d_model, cfg.d_ff, stack=stack, bias=True, dtype=dtype)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(gen, cfg, stack=stack, dtype=dtype)
 
     def ones():
         return torch.ones((*stack, cfg.d_model), dtype=dtype, device=gen.device)
@@ -108,15 +114,26 @@ def _norm(p, name, x, cfg):
 
 
 def _ffn(p, spec: LayerSpec, x, cfg):
+    """``x`` plus the layer's FFN of it, and the FFN's MoE aux loss (or None)."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = _norm(p, "norm2", x, cfg)
-    h = swiglu_ffn(p["ffn"], h) if spec.ffn == "swiglu" else gelu_ffn(p["ffn"], h)
-    return x + h
+    aux = None
+    if spec.ffn == "swiglu":
+        h = swiglu_ffn(p["ffn"], h)
+    elif spec.ffn == "gelu":
+        h = gelu_ffn(p["ffn"], h)
+    else:
+        h, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
+    return x + h, aux
 
 
 def _apply_layer(p, spec: LayerSpec, x, cfg, positions):
-    h = attn.gqa_forward(p["mixer"], _norm(p, "norm1", x, cfg), cfg, positions=positions)
+    h = _norm(p, "norm1", x, cfg)
+    if spec.mixer == "gqa":
+        h = attn.gqa_forward(p["mixer"], h, cfg, positions=positions)
+    else:
+        h = mam.mamba_forward(p["mixer"], h, cfg)
     return _ffn(p, spec, x + h, cfg)
 
 
@@ -136,10 +153,14 @@ def _index(tree, r):
 
 
 def _run_stacks(params, x, cfg, positions):
-    """Every stack's layers in order, ``repeat`` times each group."""
+    """Every stack's layers in order, ``repeat`` times each group; returns
+    (x, the summed MoE aux loss, float32)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, _, spec, lp in _layers(params, cfg):
-        x = _apply_layer(lp, spec, x, cfg, positions)
-    return x
+        x, aux = _apply_layer(lp, spec, x, cfg, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _logits(params, x, cfg):
@@ -159,31 +180,39 @@ def forward(params, batch: dict, cfg: ArchConfig):
         x = torch.cat([fe.to(dt), x.to(dt)], dim=1)
         n_front = fe.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _run_stacks(params, x, cfg, positions)
+    x, aux = _run_stacks(params, x, cfg, positions)
     if n_front:
         x = x[:, n_front:]
-    # no MoE layer is ported, so the auxiliary loss is 0
-    return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), aux
 
 
 # ======================================================================
 # decode caches
 # ======================================================================
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Per layer: a GQA layer's K and V buffers in ``dtype``, a Mamba
+    layer's float32 recurrent state (as the reference's)."""
     _check_ported(cfg)
     cache = {}
     for si, (repeat, specs) in enumerate(cfg.stacks):
         group = {}
-        for li in range(len(specs)):
-            one = attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
+        for li, spec in enumerate(specs):
+            if spec.mixer == "gqa":
+                one = attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
+            else:
+                one = mam.mamba_init_state(cfg, batch, device=device)
             group[f"l{li}"] = {k: t[None].repeat(repeat, *[1] * t.dim()) for k, t in one.items()}
         cache[f"stack{si}"] = group
     return cache
 
 
 def _decode_layer(p, spec: LayerSpec, x, cache, length, cfg):
-    h, cache = attn.gqa_decode(p["mixer"], _norm(p, "norm1", x, cfg), cache, length, cfg)
-    return _ffn(p, spec, x + h, cfg), cache
+    h = _norm(p, "norm1", x, cfg)
+    if spec.mixer == "gqa":
+        h, cache = attn.gqa_decode(p["mixer"], h, cache, length, cfg)
+    else:
+        h, cache = mam.mamba_decode(p["mixer"], h, cache, cfg)
+    return _ffn(p, spec, x + h, cfg)[0], cache
 
 
 def decode_step(params, tokens, cache, length: int, cfg: ArchConfig):

@@ -47,6 +47,7 @@ def _no_nvcc(monkeypatch, tmp_path):
 
 def _kernel_calls(dist, lams, csr, a):
     qkv = torch.zeros((1, 2, 8, 64), device=a.device)
+    scan = _scan_args(1, 40, 16, 8, torch.float32, a.device, chunk=16)
     return (
         lambda: ops.relax_round(dist, lams, csr),
         lambda: ops.relax_round_witness(dist, lams, csr),
@@ -54,7 +55,25 @@ def _kernel_calls(dist, lams, csr, a):
         lambda: ops.maxplus_bmv(a, a[:, 0].contiguous()),
         lambda: ops.maxplus_matmul(a[0], a[0]),
         lambda: ops.flash_attention(qkv, qkv, qkv),
+        lambda: ops.lif_crossbar_step(a[0], a[0], a[0]),
+        lambda: ops.mamba_chunk_scan(*scan, chunk=16),
+        lambda: ops.mamba_scan(*scan[:5], chunk=16),
     )
+
+
+def _scan_args(b, length, d, n, dtype, dev, chunk, seed=0, h0_scale=0.0):
+    """(x, dt, a, b, c, h0) of a chunk scan, seeded; h0 is ``h0_scale`` times
+    a standard normal draw."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    nc = -(-length // chunk)
+    x = torch.randn(b, length, d, generator=gen)
+    dt = 0.01 + 0.1 * torch.rand(b, length, d, generator=gen)
+    a = -torch.exp(torch.randn(d, n, generator=gen))
+    bm = torch.randn(b, length, n, generator=gen)
+    cm = torch.randn(b, length, n, generator=gen)
+    h0 = h0_scale * torch.randn(b, nc, d, n, generator=gen)
+    return (*(t.to(dev, dtype) for t in (x, dt)), a.to(dev),
+            *(t.to(dev, dtype) for t in (bm, cm)), h0.to(dev))
 
 
 def test_kernel_path_raises_when_the_library_cannot_be_built(monkeypatch, tmp_path):
@@ -94,6 +113,38 @@ def test_flash_attention_rejects_what_its_kernel_does_not_take(monkeypatch):
         ops.flash_attention(q, kv[:, :, :4], kv)
     with pytest.raises(ValueError, match="shape mismatch"):
         ops.flash_attention(q[:, :3], kv, kv)
+
+
+def test_lif_and_scan_wrappers_reject_what_their_kernels_do_not_take(monkeypatch):
+    """Checked before the build, so these raise here too (routing forced)."""
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    s, w, v = torch.zeros((8, 128)), torch.zeros((128, 64)), torch.zeros((8, 64))
+    with pytest.raises(TypeError, match="float32"):
+        ops.lif_crossbar_step(s.double(), w.double(), v.double())
+    with pytest.raises(TypeError, match="float32"):
+        ops.lif_crossbar_step(s.bfloat16(), w, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.lif_crossbar_step(s, w.t().contiguous().t(), v)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.lif_crossbar_step(s, w, v[:, :32])
+    x, dt, a, b, c, h0 = _scan_args(1, 40, 16, 8, torch.float32, "cpu", chunk=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.mamba_chunk_scan(x.half(), dt.half(), a, b.half(), c.half(), h0, chunk=16)
+    with pytest.raises(TypeError, match="dt must be"):
+        ops.mamba_chunk_scan(x, dt.bfloat16(), a, b, c, h0, chunk=16)
+    with pytest.raises(TypeError, match="h0 must be"):
+        ops.mamba_chunk_scan(x, dt, a, b, c, h0.bfloat16(), chunk=16)
+    x4, dt4, a4, b4, c4, h04 = _scan_args(1, 40, 16, 4, torch.float32, "cpu", chunk=16)
+    with pytest.raises(ValueError, match="state sizes"):
+        ops.mamba_chunk_scan(x4, dt4, a4, b4, c4, h04, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mamba_chunk_scan(*_scan_args(1, 40, 16, 16, torch.float32, "cpu", chunk=512),
+                             chunk=512)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.mamba_chunk_scan(x, dt, a, b, c, h0, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_chunk_scan(x, dt, a, b.transpose(1, 2).contiguous().transpose(1, 2), c, h0,
+                             chunk=16)
 
 
 @pytest.mark.cuda
@@ -210,3 +261,64 @@ def test_flash_attention_takes_unaligned_bf16_rows():
     assert tref.attention_excess(out, plain) <= 1.0
     aligned = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     assert torch.equal(out, aligned)
+
+
+# ======================================================================
+# K5: the LIF crossbar step, bit for bit
+# ======================================================================
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128, 128), (3, 300, 200), (16, 96, 64), (37, 129, 65)])
+def test_lif_crossbar_step_bit_identical_on_the_card(shape):
+    dev = _need_cuda()
+    b, n_in, n_out = shape
+    gen = torch.Generator(device="cpu").manual_seed(b + n_in)
+    s = (torch.rand(b, n_in, generator=gen) < 0.2).float().to(dev)
+    w = torch.randn(n_in, n_out, generator=gen).to(dev)
+    v = torch.randn(b, n_out, generator=gen).to(dev)
+    before = ops.LAUNCHES["lif_crossbar_step"]
+    out_s, out_v = ops.lif_crossbar_step(s, w, v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lif_crossbar_step"] == before + 1
+    plain_s, plain_v = tref.lif_crossbar_step_ref(s, w, v)
+    assert torch.equal(out_s, plain_s) and torch.equal(out_v, plain_v)
+    # the exact threshold: 128 terms of 2^-7 sum to v_th and fire
+    w0 = torch.zeros((128, 128), device=dev)
+    w0[:, 0] = 1.0 / 128.0
+    fired, reset = ops.lif_crossbar_step(torch.ones((8, 128), device=dev), w0,
+                                         torch.zeros((8, 128), device=dev))
+    assert (fired[:, 0] == 1).all() and (reset[:, 0] == 0).all() and (fired[:, 1:] == 0).all()
+
+
+# ======================================================================
+# K7: the chunk scan, within SCAN_TOL
+# ======================================================================
+SCAN_CASES = {
+    # name: (b, length, d, n, chunk)
+    "whole": (1, 128, 128, 8, 64),
+    "two_batches": (2, 256, 256, 16, 128),
+    "ragged_l_and_d": (1, 200, 130, 16, 64),
+    "ragged_small": (2, 77, 200, 8, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_mamba_chunk_scan_matches_its_plain_version_on_the_card(case, dtype):
+    dev = _need_cuda()
+    b, length, d, n, chunk = SCAN_CASES[case]
+    args = _scan_args(b, length, d, n, dtype, dev, chunk, seed=length + d, h0_scale=1.0)
+    before = ops.LAUNCHES["mamba_chunk_scan"]
+    y, h = ops.mamba_chunk_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_chunk_scan"] == before + 1
+    plain_y, plain_h = tref.mamba_chunk_scan_ref(*args, chunk=chunk)
+    assert y.dtype == dtype and h.dtype == torch.float32 and torch.isfinite(y).all()
+    assert tref.scan_excess(y, plain_y, chunk) <= 1.0
+    rms = plain_h.square().mean(dim=-1, keepdim=True).sqrt()
+    assert ((h - plain_h).abs() <= 2.0**-20 * plain_h.abs() + 2.0**-14 * rms).all()
+    # the full scan: two launches around the combine, the card against the host
+    full_y, full_h = ops.mamba_scan(*args[:5], chunk=chunk)
+    assert ops.LAUNCHES["mamba_chunk_scan"] == before + 3
+    host_y, _ = ops.mamba_scan(*(t.cpu() for t in args[:5]), chunk=chunk)
+    assert tref.scan_excess(full_y.cpu(), host_y, chunk) <= 1.0 and full_h.shape == (b, d, n)
