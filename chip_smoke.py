@@ -57,9 +57,13 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               as the largest is), within kernels/ref.py's ATTN_TOL (per
               element one rounding step of the output type plus 2^-14 of its
               row's root mean square); all four flash comparisons are
-              printed before any is checked;
+              printed before any is checked; each flash call also timed
+              against one F.scaled_dot_product_attention call for the same
+              masks (a boolean mask for the window), whose own distance from
+              the plain version is printed as library_tol_ratio;
               K7 within kernels/ref.py's SCAN_TOL at its last largest call
-              (from combined, nonzero chunk states)
+              (from combined, nonzero chunk states); K1 and K7, launched on
+              two paths each, also timed at each path's largest call
 
 Launch counts are set to 0 just before each path's phase (2, 3, 5-9) and
 read just after, and reported per path; launches made to compare or time
@@ -124,6 +128,9 @@ JAMBA = "jamba-v0.1-52b"
 #: kernels whose largest call is the last of equal size (K7's second launch
 #: of a scan starts from the combined chunk states, not zeros)
 KEEP_LAST_OF_EQUAL = ("mamba_chunk_scan",)
+#: kernels launched on more than one path at different shapes: each is also
+#: timed at every path's largest call (the rule-2 order weighs launches by it)
+BY_PATH = ("relax_round", "relax_round_witness", "mamba_chunk_scan")
 
 
 def emit(obj) -> None:
@@ -247,6 +254,7 @@ def main() -> None:
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
     flash_largest = {}    # "float32" / "windowed" / "lm_prefill" (qwen2's 32k) -> the same
+    path_largest = {k: {} for k in BY_PATH}     # kernel -> {path: the same}
 
     def k1_shape(dist, lams, csr):
         return (dist.shape[0] // csr.n_actors, csr.n_actors, int(csr.src.numel()), dist.shape[1])
@@ -269,17 +277,21 @@ def main() -> None:
     def work(name, shape):    # E*K terms for K1, the product of the dims otherwise
         return shape[2] * shape[3] if name.startswith("relax") else math.prod(shape)
 
-    def keep_if_larger(table, key, name, shape, args, kwargs):
+    def keep_if_larger(table, key, name, shape, args, kwargs, kept=None):
+        """Store this call under ``key`` if it is the larger (``kept``: the
+        same call's entry from another table, shared instead of cloned)."""
         if key in table and name in KEEP_LAST_OF_EQUAL:
             larger = work(name, shape) >= table[key]["work"]
         else:
             larger = key not in table or work(name, shape) > table[key]["work"]
-        if larger:
-            table[key] = {
-                "work": work(name, shape), "path": where["path"], "app": where["app"],
-                "shape": shape, "kwargs": dict(kwargs), "args": tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a for a in args),
-            }
+        if not larger:
+            return None
+        table[key] = kept or {
+            "work": work(name, shape), "path": where["path"], "app": where["app"],
+            "shape": shape, "kwargs": dict(kwargs), "args": tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+        }
+        return table[key]
 
     def spy(name):
         orig = getattr(ops, name)
@@ -288,7 +300,10 @@ def main() -> None:
             if where["path"] is not None and args[0].is_cuda:
                 shape = tuple(int(d) for d in shape_of[name][1](*args, **kwargs))
                 seen[name].setdefault(where["path"], collections.Counter())[shape] += 1
-                keep_if_larger(largest, name, name, shape, args, kwargs)
+                kept = keep_if_larger(largest, name, name, shape, args, kwargs)
+                if name in BY_PATH:
+                    keep_if_larger(path_largest[name], where["path"], name, shape, args, kwargs,
+                                   kept)
                 if name == "flash_attention":
                     if args[0].dtype == torch.float32:
                         keep_if_larger(flash_largest, "float32", name, shape, args, kwargs)
@@ -858,15 +873,40 @@ def main() -> None:
     for name in shape_of:
         check(name in largest, f"{name} was never called on the card by phases 2-9")
 
+    def by_path(name, work_of, terms_per_s):
+        """Time, bound and launches of ``name`` at each path's largest call."""
+        out = {}
+        for path, call in path_largest[name].items():
+            args, kw = call["args"], call["kwargs"]
+            nbytes, n_terms = work_of(*args)
+            b_ms, b_by = bound(nbytes, n_terms, terms_per_s)
+            out[path] = {
+                "shape": dict(zip(shape_of[name][0], call["shape"])), "app": call["app"],
+                "launches": launches[name].get(path, 0),
+                "ms": timed(lambda: getattr(ops, name)(*args, **kw)),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+        return out
+
+    def k1_work(witness):
+        def work_of(dist, lams, csr):
+            nk, k = dist.shape
+            e = int(csr.src.numel())
+            # row pointers, per edge src/w/t, each node's dist row, lams; best
+            # (and psrc) out
+            nbytes = (nk + 1) * 4 + e * (4 + 8 + 8) + nk * k * 8 + lams.numel() * 8 \
+                + nk * k * 8 * (2 if witness else 1)
+            return nbytes, e * k
+        return work_of
+
     # K1 on the inputs of its largest admission call (HeartClass's stack)
     for name, plain_fn in (("relax_round", ref.segment_relax_ref),
                            ("relax_round_witness", ref.segment_relax_witness_ref)):
         dist, lams, csr = largest[name]["args"]
         kern_fn = getattr(ops, name)
-        nk, k = dist.shape
+        k = dist.shape[1]
         e = int(csr.src.numel())
-        # row pointers, per edge src/w/t, each node's dist row, lams; best out
-        nbytes = (nk + 1) * 4 + e * (4 + 8 + 8) + nk * k * 8 + lams.numel() * 8 + nk * k * 8
+        nbytes = k1_work(name == "relax_round_witness")(dist, lams, csr)[0]
         library = None
         if name == "relax_round":
             cand = dist[csr.src.long()] + (csr.w[:, None] - lams[csr.dst_row] * csr.t[:, None])
@@ -875,7 +915,6 @@ def main() -> None:
             err = max_abs_err(kern_fn(dist, lams, csr), plain_fn(dist, lams, csr))
             library = lambda: out.scatter_reduce(0, idx, cand, "amax", include_self=True)  # noqa: E731
         else:
-            nbytes += nk * k * 8                                   # psrc out
             bw, pw = kern_fn(dist, lams, csr)
             br, pr = plain_fn(dist, lams, csr)
             check(torch.equal(pw, pr), "relax_round_witness psrc differs from its plain version")
@@ -884,6 +923,8 @@ def main() -> None:
                "src/repro/kernels/maxplus_bellman.py:116",
                lambda: kern_fn(dist, lams, csr), lambda: plain_fn(dist, lams, csr),
                err, nbytes, e * k, RELAX_TERMS_PER_S, library=library)
+        kernels[-1]["by_path"] = by_path(name, k1_work(name == "relax_round_witness"),
+                                         RELAX_TERMS_PER_S)
 
     # K2, K3 and the G = 1 matmul on the inputs of their largest dense-path call
     for name, replaces, plain_fn in (
@@ -900,8 +941,8 @@ def main() -> None:
                (a.numel() + b.numel() + out_numel) * 4, largest[name]["work"],
                MAXPLUS_TERMS_PER_S)
 
-    # K6 on the inputs of its largest call (qwen2-1.5b's 32k bf16 prefill),
-    # and checked at its largest float32 call and its largest windowed call
+    # K6 on the inputs of its largest call (jamba's 32k GQA layer), and
+    # checked at its largest float32, windowed and lm_prefill calls
     def attn_pairs(sq, skv, causal, window):
         """(query, key) pairs the masks keep, per (batch, head)."""
         i = np.arange(sq, dtype=np.int64)
@@ -916,13 +957,64 @@ def main() -> None:
         flops = 4 * d * hq * b_ * attn_pairs(sq, k.shape[2], causal, window)
         return nbytes, flops, BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
 
+    def sdpa_for(q, k, v, kw):
+        """The library yardstick, timed here only: one
+        ``F.scaled_dot_product_attention`` call for the same masks, as (call,
+        its description, None), or (None, None, why) where no backend takes
+        it.  A causal unwindowed call goes to the flash backend (the math
+        backend would materialise the (Sq, Skv) scores), else to the
+        memory-efficient one; a window goes to the memory-efficient backend
+        with a boolean (Sq, Skv) mask.  k and v are expanded to Hq heads
+        before the timed call where a backend refuses ``enable_gqa``."""
+        mask = None
+        plans = [(SDPBackend.EFFICIENT_ATTENTION, "memory-efficient")]
+        if kw["causal"] and not kw["window"]:
+            plans.insert(0, (SDPBackend.FLASH_ATTENTION, "flash"))
+        else:
+            i = torch.arange(q.shape[2], device=q.device)[:, None]
+            j = torch.arange(k.shape[2], device=q.device)[None, :]
+            mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device)
+            if kw["causal"]:
+                mask &= i >= j
+            if kw["window"] > 0:
+                mask &= (i - j) < kw["window"]
+        group = q.shape[1] // k.shape[1]
+        refused = []
+        for backend, backend_name in plans:
+            for gqa in (True, False):
+                kk, vv = (k, v) if gqa else (k.repeat_interleave(group, 1),
+                                             v.repeat_interleave(group, 1))
+
+                def sdpa(kk=kk, vv=vv, gqa=gqa, backend=backend):
+                    with sdpa_kernel([backend]):
+                        return F.scaled_dot_product_attention(
+                            q, kk, vv, attn_mask=mask, is_causal=mask is None, enable_gqa=gqa)
+                try:
+                    sdpa()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:     # this backend takes no such call
+                    refused.append(f"{backend_name}, enable_gqa={gqa}: "
+                                   + str(e).splitlines()[0][:200])
+                    continue
+                return sdpa, (
+                    "F.scaled_dot_product_attention("
+                    + ("is_causal=True" if mask is None else "attn_mask=bool (Sq, Skv)")
+                    + (", enable_gqa=True" if gqa else "; k, v expanded to Hq heads")
+                    + f"), {backend_name} backend"), None
+        return None, None, "; ".join(refused)
+
     def flash_case(key, call):
-        """(the comparison's row, the call's inputs and work)."""
+        """(the comparison's row, the call's inputs, yardstick and work).
+        ``library_tol_ratio`` reads the yardstick against the plain version
+        by the same measure: a printed reading, not a check."""
         q, k, v = call["args"]
         kw = {"causal": call["kwargs"].get("causal", True), "window": call["kwargs"].get("window", 0)}
         out, plain = ops.flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw)
         err, excess = max_abs_err(out, plain), ref.attention_excess(out, plain)
-        del out, plain
+        del out
+        sdpa, library_call, library_error = sdpa_for(q, k, v, kw)
+        library_ratio = ref.attention_excess(sdpa(), plain) if sdpa is not None else None
+        del plain
         rtol, row_tol = ref.ATTN_TOL[q.dtype]
         return {
             "call": key, "path": call["path"], "app": call["app"],
@@ -930,7 +1022,9 @@ def main() -> None:
             "shape": dict(zip(shape_of["flash_attention"][0], call["shape"])),
             "max_abs_err": err, "tol_ratio": excess,
             "tolerance": {"rtol": rtol, "row_tol": row_tol},
-        }, (q, k, v, kw, *flash_work(q, k, **kw))
+            "library_call": library_call, "library_tol_ratio": library_ratio,
+            "library_error": library_error,
+        }, (q, k, v, kw, sdpa, *flash_work(q, k, **kw))
 
     for key in ("float32", "windowed", "lm_prefill"):
         check(key in flash_largest, f"flash attention had no {key} call in phases 5-9")
@@ -941,41 +1035,21 @@ def main() -> None:
         check(row["tol_ratio"] <= 1.0,
               f"flash attention ({key} call) is {row['tol_ratio']} times its tolerance "
               f"(max abs err {row['max_abs_err']})")
-    def sdpa_for(q, k, v, kw):
-        """The library yardstick, timed here only: PyTorch's flash backend
-        (its math backend would materialise the (Sq, Skv) scores); (None,
-        why) where it takes no such call."""
-        if not kw["causal"] or kw["window"]:
-            return None, "no causal unwindowed SDPA call computes this mask"
-
-        def sdpa():
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-        try:
-            sdpa()
-            torch.cuda.synchronize()
-        except RuntimeError as e:     # no flash backend for this call: no yardstick
-            return None, str(e).splitlines()[0][:300]
-        return sdpa, None
-
     for key in ("float32", "windowed", "lm_prefill"):
-        row, (q, k, v, kw, nbytes, flops, peak) = cases[key]
-        sdpa, sdpa_error = sdpa_for(q, k, v, kw)
+        row, (q, k, v, kw, sdpa, nbytes, flops, peak) = cases[key]
         row.update(ms=timed(lambda: ops.flash_attention(q, k, v, **kw)),
                    plain_ms=timed(lambda: ref.attention_ref(q, k, v, **kw)),
                    bound_ms=bound(nbytes, flops, peak)[0],
-                   library_ms=timed(sdpa) if sdpa is not None else None,
-                   library_error=sdpa_error)
-    row, (q, k, v, kw, nbytes, flops, peak) = cases["largest"]
-    sdpa, sdpa_error = sdpa_for(q, k, v, kw)
+                   library_ms=timed(sdpa) if sdpa is not None else None)
+    row, (q, k, v, kw, sdpa, nbytes, flops, peak) = cases["largest"]
     record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:130",
            lambda: ops.flash_attention(q, k, v, **kw), lambda: ref.attention_ref(q, k, v, **kw),
            row["max_abs_err"], nbytes, flops, peak, library=sdpa, tol_ratio=row["tol_ratio"],
            tolerance=row["tolerance"], checks=[r for r, _ in cases.values()],
-           library_call="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
-                        "flash backend", library_error=sdpa_error)
-    del q, k, v, cases
+           library_call=row["library_call"], library_tol_ratio=row["library_tol_ratio"],
+           library_error=row["library_error"])
+    del q, k, v, sdpa, cases
 
     # K5 on the inputs of its largest call (the example's (8,128)x(128,128))
     s_in, w_in, v_in = largest["lif_crossbar_step"]["args"]
@@ -1009,20 +1083,22 @@ def main() -> None:
                                 h_diff / (rtol7 * ph.abs() + row_tol7 * h_rms)).max())
     y_err, h_err = max_abs_err(ky, py), max_abs_err(kh, ph)
     del ky, kh, py, ph, h_rms, h_diff
-    bsz7, len7, d7 = x7.shape
-    n7 = a7.shape[1]
-    terms7 = bsz7 * len7 * d7 * n7
-    # x, dt and y; B and C; a; h0 and h_out
-    nbytes7 = (3 * x7.numel() + 2 * b7.numel()) * x7.element_size() + a7.numel() * 4 \
-        + 2 * h07.numel() * 4
+    def k7_work(x, dt, a, b, c, h0):
+        bsz, length, d = x.shape
+        # x, dt and y; B and C; a; h0 and h_out.  Per (b, t, d, n) term seven
+        # float32 operations: dt*a, exp, decay*h, (dt*x)*B, the add, h*C and
+        # the sum's add (dt*x is per (b, t, d))
+        nbytes = (3 * x.numel() + 2 * b.numel()) * x.element_size() + a.numel() * 4 \
+            + 2 * h0.numel() * 4
+        return nbytes, 7 * bsz * length * d * a.shape[1] + bsz * length * d
+
+    terms7 = x7.shape[0] * x7.shape[1] * x7.shape[2] * a7.shape[1]
+    nbytes7, ops7 = k7_work(x7, dt7, a7, b7, c7, h07)
     record("mamba_chunk_scan", "src/repro_torch/csrc/mamba_scan.cu",
            "src/repro/kernels/mamba_scan.py:96",
            lambda: ops.mamba_chunk_scan(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
            lambda: ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
-           max(y_err, h_err),
-           # per (b, t, d, n) term seven float32 operations: dt*a, exp, decay*h,
-           # (dt*x)*B, the add, h*C and the sum's add (dt*x is per (b, t, d))
-           nbytes7, 7 * terms7 + bsz7 * len7 * d7, FP32_FLOPS_PER_S,
+           max(y_err, h_err), nbytes7, ops7, FP32_FLOPS_PER_S,
            tol_ratio=max(y_ratio, h_ratio),
            tolerance={"rtol": ref.SCAN_TOL[x7.dtype][0], "row_tol": ref.SCAN_TOL[x7.dtype][1],
                       "state_rtol": rtol7, "state_row_tol": row_tol7},
@@ -1030,7 +1106,8 @@ def main() -> None:
            state_max_abs_err=h_err, dtype=str(x7.dtype).split(".")[-1], chunk=chunk7,
            expf=terms7, expf_bound_ms=1e3 * terms7 / EX2_PER_S,
            library_note="none: no single PyTorch call computes a selective scan")
-    del x7, dt7, a7, b7, c7, h07
+    kernels[-1]["by_path"] = by_path("mamba_chunk_scan", k7_work, FP32_FLOPS_PER_S)
+    del x7, dt7, a7, b7, c7, h07, path_largest
 
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} never launched on the main path")

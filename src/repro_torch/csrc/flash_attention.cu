@@ -8,60 +8,97 @@
 // Running max, sum and accumulator are float32; a row that keeps no key
 // gives 0; q, k and v are float32 or bf16 and the output has q's type.
 //
-// Design.  The TPU kernel walks a sequential kv grid axis and keeps the
+// Plan.  The TPU kernel walks a sequential kv grid axis and keeps the
 // running statistics in VMEM scratch between grid steps.  Hopper blocks run
-// in no order, so here one block owns a 64-row q tile of one (batch, query
-// head) and loops over kv tiles itself, with the running max, sum and
-// accumulator in registers.  The tile skips are the TPU kernel's: the loop
-// starts at the first kv tile that reaches into the window and ends after
-// the last tile a causal row can see.  Ragged Sq and Skv are masked inside
-// the kernel, so callers never pad, and causal=False needs no fallback.
-// Blocks are issued latest q tile first, so the longest causal rows do not
-// finish last on a few SMs.  Two bodies share this plan:
+// in no order, so here a block owns a q tile of one (batch, query head) and
+// loops over kv tiles itself, with the running max, sum and accumulator in
+// registers.  The tile skips are the TPU kernel's: the loop starts at the
+// first kv tile that reaches into the window and ends after the last tile
+// a causal row can see, and only tiles on a mask's edge are masked
+// element by element.  Ragged Sq and Skv are handled in the kernel, so
+// callers never pad, and causal=False needs no fallback.  Blocks are issued
+// latest q tile first, so the longest causal rows do not finish last on a
+// few SMs.  Two bodies share this plan:
 //
 // * float32 (flash_kernel): float32 FMAs on the CUDA cores, no TF32.  256
-//   threads; each holds 4 q rows (ty*4 + i) by D/16 output columns
-//   (tx + 16c) and 4 x 2 scores of a 32-row kv tile, and the 16 threads of
-//   a row reduce its max and sum with warp shuffles.  q (scaled by 1/sqrt(D)
-//   on load, as the TPU kernel does), K, V and the probabilities are staged
-//   in shared memory as float32; q k^T reads q and k rows as float4, rows
-//   padded to D + 4 floats so eight threads reading eight k rows hit
-//   distinct banks.
-// * bf16 (flash_mma_kernel): the tensor cores through mma.sync m16n8k16
-//   with float32 accumulation.  4 warps, 16 q rows each, 64-row kv tiles.
-//   q's fragments stay in registers for the whole loop; S = q k^T comes out
-//   in the accumulator layout, is scaled by 1/sqrt(D) in float32 (as the
-//   plain version scales the product), masked and exponentiated there, and
-//   its registers are repacked as bf16 A fragments of P V without a trip
-//   through shared memory (FlashAttention-2's layout identity).  K is
-//   staged row-major and V transposed, rows padded by 8 bf16, so that every
-//   fragment load is one conflict-free 32-bit read.  The TPU kernel and the
-//   plain version multiply V by float32 probabilities; a bf16 P would be
-//   off by 2^-9 of each term.  So P goes in as two bf16 fragments, P
-//   rounded and the rest of P rounded, and P V takes two mma per k-step:
-//   P is then kept to about 2^-17, below the float32 sums' own error.
-//   The tensor cores truncate an addition into their accumulator instead
-//   of rounding it to nearest, so the error of a sum kept there grows with
-//   its length (on an H100, a 32768-key row summed over its 512 kv tiles
-//   in the accumulator landed 1.5x over kernels/ref.py's ATTN_TOL).  So
-//   each tile's P V sums in a fresh accumulator of 8 mma steps, and the
-//   running output is rescaled and added to on the CUDA cores.
+//   threads, a 64-row q tile; each holds 4 q rows (ty*4 + i) by D/16 output
+//   columns (tx + 16c) and 4 x 2 scores of a 32-row kv tile, and the 16
+//   threads of a row reduce its max and sum with warp shuffles.  q (scaled
+//   by 1/sqrt(D) on load, as the TPU kernel does), K, V and the
+//   probabilities are staged in shared memory as float32, rows padded to
+//   D + 4 floats so eight threads reading eight k rows hit distinct banks.
+//   It runs only float32 prefill steps at serving batch, where a call takes
+//   microseconds and launch cost bounds it.
+//
+// * bf16 (flash_wgmma_kernel), the 32k prefill path: a warp-specialised
+//   Hopper pipeline.  A block owns 128 q rows and has three warpgroups: a
+//   producer, of which one thread issues every load as a TMA copy, and two
+//   consumers of 64 q rows each, whose products are wgmma.  Q is loaded
+//   once; K and V come through a ring of STAGES 64-key tiles, each stage
+//   guarded by full barriers (K and V apart, so Q K^T starts before V has
+//   landed) and an empty barrier that all eight consumer warps arrive on
+//   when they are done with the stage.  One tensor map per operand covers
+//   (D, S, H, B) with the caller's strides, so strided and transposed views
+//   load without a copy.  A box is 64 columns (128 bytes, the widest a
+//   128-byte swizzle takes) by 64 rows: D = 128 loads as two boxes, and
+//   D = 96 as two whose last 32 columns lie out of bounds; TMA fills those,
+//   and the rows past Sq or Skv, with zeros.
+//   S = Q K^T is wgmma m64n64k16 with both operands K-major in shared
+//   memory.  The softmax runs in log2 units: a score is scaled by
+//   log2(e)/sqrt(D) in the one FMA that subtracts the running max, and P is
+//   ex2.approx, one MUFU op, where the mma.sync body spent a full-precision
+//   expf, about ten FP32 instructions.  Only tiles on a mask's edge are
+//   masked, behind one branch the warp takes or skips; the row max and sum
+//   are trees of four chains, both rows side by side (one warp a scheduler
+//   has little else to hide latency with).  The S accumulator is repacked in
+//   registers as the A operand of P V (the accumulator and A fragment
+//   layouts coincide), and V is read by wgmma as an MN-major B operand
+//   straight from its TMA tile: V is never transposed by hand.  P V is one
+//   m64n128k16 a 16-key step at D = 96 and 128 (the 32 padding columns of
+//   D = 96 come out 0 and are not stored), m64n64k16 at D = 64.
+//   The TPU kernel and the plain version multiply V by float32
+//   probabilities; a bf16 P would be off by 2^-9 of each term.  So P goes
+//   in as two bf16 operands, P rounded and the rest of P rounded (P kept to
+//   about 2^-17), and P V takes two wgmma a step.  The tensor cores
+//   truncate an addition into their accumulator instead of rounding it, so
+//   a 32768-key row summed there drifts past kernels/ref.py's ATTN_TOL:
+//   each tile's P V sums in a fresh accumulator, and the CUDA cores add it
+//   to the float32 running output after the rescale, one FMA an element.
+//   Within a consumer the loop is software-pipelined: Q K^T of tile i + 1
+//   is issued with P V of tile i, and tile i + 1's softmax runs while P V is
+//   in flight.  Registers: S 32, P hi + lo 32, the fresh sum 64 and the
+//   running output 64 a thread at D = 128; setmaxnreg gives the consumers
+//   232 and the producer 40, one block an SM.  Measured against the
+//   alternatives (tools/flash_ab.py; PERF.md has the numbers): 2 stages
+//   wait on loads, more than 3 gain nothing; a named-barrier ping-pong
+//   between the two consumers gains nothing, their warps interleave on the
+//   schedulers anyway; and a Q K^T issued under a branch makes ptxas
+//   serialise every wgmma of the kernel, so the last iteration issues one on
+//   a resident tile and drops it.
 //
 // Bound on the H100: 4*D flops per (query, key) pair the masks keep, per
 // query head; bytes are only q, k, v and o, read or written once.  At the
 // prefill shapes the flops bound it: 989 TFLOP/s on the tensor cores in
 // bf16, 67 TFLOP/s on the CUDA cores in float32.  The split P makes the
-// bf16 body issue 1.5x the bound's tensor-core work (P V twice).  Neither
-// body overlaps its tile loads with its arithmetic (no cp.async or TMA
-// pipeline yet), so both leave much of their bound unused; in float32 the
-// shared-memory loads of q k^T (six float4 loads per 32 FMAs) also keep it
-// below the FMA rate.
+// bf16 body issue 1.5x the bound's tensor-core work (P V twice), so 1.5x
+// the bound is its own floor.  What held the mma.sync body it replaces, and
+// what this one does instead: loads by all threads, synchronous, two block
+// syncs per 64 keys (a TMA ring that runs ahead of the products); V
+// transposed element by element into shared memory (an MN-major operand);
+// mma.sync fed by 32-bit shared-memory loads (wgmma reading its operands
+// itself); 64-row tiles at two blocks an SM (128 rows, one 384-thread
+// block); a full-precision expf per kept pair (ex2.approx), with the
+// softmax serialised between the products (issued under them).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;          // q rows per block
 constexpr int BKV = 32;         // kv rows per tile
@@ -227,22 +264,25 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: tensor cores through mma.sync
+// bf16 body: TMA ring, warp-specialised wgmma
 // ---------------------------------------------------------------------------
-constexpr int MQ = 64;          // q rows per block, 16 per warp
-constexpr int MKV = 64;         // kv rows per tile
-constexpr int MTHREADS = 128;   // 4 warps
-constexpr int VP = MKV + 8;     // row stride (bf16) of the transposed V tile
+constexpr int WQ = 128;                   // q rows per block, 64 per consumer
+constexpr int WKV = 64;                   // keys per kv tile
+constexpr int STAGES = 3;                 // kv tiles in flight
+constexpr int CONSUMERS = 2;              // consumer warpgroups
+constexpr int WTHREADS = 128 * (1 + CONSUMERS);
+constexpr uint32_t BOX = 64 * 128;        // bytes of one 64-row x 64-column box
 
-// c += a b for a 16x16 bf16 A (row-major fragments), a 16x8 B (col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int D>
+struct Ring {
+  static constexpr int NA = (D + 63) / 64;             // boxes across a row
+  static constexpr uint32_t TILE = NA * BOX;           // 64 rows of K, V or q
+  static constexpr uint32_t K_OFF = 2 * TILE;          // q: two 64-row halves
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * TILE;
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * TILE;
+  // q_full, then k_full, v_full and empty for each stage; 1 KB for alignment
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
 
 // two bf16, the lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -250,208 +290,332 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// (x0, x1) as hi + lo: hi the pair rounded to bf16, lo the remainder rounded
+// (x0, x1) as hi + lo, two bf16 each with x0 in the low half: hi the pair
+// rounded, lo the remainder rounded
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(hi) : "f"(x1), "f"(x0));
+  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n"
+      : "=r"(lo)
+      : "f"(__fsub_rn(x1, h1)), "f"(__fsub_rn(x0, h0)));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// This thread's place in a consumer's 64 rows: the warp's first row, the
+// thread's first row (the other is row0 + 8) and its column pair in an n8
+// block of the accumulator
+struct Rows {
+  int qwarp, row0, tq;
+};
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (MQ * (D + 8) + MKV * (D + 8) + D * VP);
-}
+struct Masks {
+  int Skv, causal, window;
+  float scale_log2;
+};
 
-// q, k, v rows must be 16-byte aligned (the wrapper sees to it).
-template <int D>
-__global__ void __launch_bounds__(MTHREADS)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq,
-                 int group, int Sq, int Skv, Strides qs, Strides ks, Strides vs, int causal,
-                 int window, float scale) {
-  constexpr int KP = D + 8;       // row stride (bf16) of the q and k tiles
-  constexpr int KSTEPS = D / 16;  // k-steps of q k^T
-  constexpr int NT = MKV / 8;     // score n-tiles per warp
-  constexpr int ND = D / 8;       // output n-tiles per warp
-  constexpr int CH = D / 8;       // 16-byte chunks per row
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // MQ x KP
-  __nv_bfloat16* Ks = Qs + MQ * KP;                                // MKV x KP
-  __nv_bfloat16* Vt = Ks + MKV * KP;                               // D x VP
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MQ;
-  const int hq = blockIdx.y, b = blockIdx.z, hk = hq / group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  q += b * qs.b + hq * qs.h;
-  k += b * ks.b + hk * ks.h;
-  v += b * vs.b + hk * vs.h;
-  o += ((int64_t)b * Hq + hq) * Sq * D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int idx = tid; idx < MQ * CH; idx += MTHREADS) {
-    const int r = idx / CH, c = idx - r * CH;
-    const int qi = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * KP + c * 8) =
-        qi < Sq ? *reinterpret_cast<const uint4*>(q + qi * qs.s + c * 8) : zero;
-  }
-  __syncthreads();
-  const int qr = warp * 16 + g;  // this thread's tile rows: qr and qr + 8
-  uint32_t qf[KSTEPS][4];
+// Scores the masks drop become -inf: only on tiles where the warp's 16
+// rows meet an edge (a branch the whole warp takes or skips).
+// Accumulator element 4j + 2r + e is row row0 + 8r, key k0 + 8j + 2tq + e.
+__device__ __forceinline__ void mask_tile(float (&sc)[32], int k0, const Rows& w,
+                                          const Masks& mk) {
 #pragma unroll
-  for (int kb = 0; kb < KSTEPS; ++kb) {
-    const __nv_bfloat16* p = Qs + qr * KP + kb * 16 + 2 * t;
-    qf[kb][0] = ld32(p);
-    qf[kb][1] = ld32(p + 8 * KP);
-    qf[kb][2] = ld32(p + 8);
-    qf[kb][3] = ld32(p + 8 * KP + 8);
-  }
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[ND][4];
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  const int qw = q0 + warp * 16;  // first row of this warp
-  const int q_last = min(q0 + MQ, Sq) - 1;
-  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / MKV * MKV : 0;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += MKV) {
-    __syncthreads();  // every warp is done with the last tile
-    for (int idx = tid; idx < MKV * CH; idx += MTHREADS) {  // K: chunks fastest
-      const int r = idx / CH, c = idx - r * CH;
-      const int kj = k0 + r;
-      *reinterpret_cast<uint4*>(Ks + r * KP + c * 8) =
-          kj < Skv ? *reinterpret_cast<const uint4*>(k + kj * ks.s + c * 8) : zero;
-    }
-    for (int idx = tid; idx < MKV * CH; idx += MTHREADS) {  // V^T: rows fastest
-      const int r = idx % MKV, c = idx / MKV;
-      const int kj = k0 + r;
-      const uint4 val = kj < Skv ? *reinterpret_cast<const uint4*>(v + kj * vs.s + c * 8) : zero;
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(c * 8 + i) * VP + r] = e[i];
-    }
-    __syncthreads();
-
-    // S = q k^T for rows (qr, qr + 8) x this tile's 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kb = 0; kb < KSTEPS; ++kb) {
-        const __nv_bfloat16* p = Ks + (j * 8 + g) * KP + kb * 16 + 2 * t;
-        mma_bf16(s[j], qf[kb], ld32(p), ld32(p + 8));
+      for (int e = 0; e < 2; ++e) {
+        const int qi = w.row0 + 8 * r, kj = k0 + 8 * j + 2 * w.tq + e;
+        const bool keep =
+            kj < mk.Skv && (!mk.causal || qi >= kj) && (mk.window <= 0 || qi - kj < mk.window);
+        if (!keep) sc[4 * j + 2 * r + e] = -INFINITY;
       }
-    }
+}
 
-    // scale, mask (only where this warp's rows meet an edge) and the
-    // online-softmax update; s[j][2r + e] is row qr + 8r, key 8j + 2t + e
-    const bool inside = k0 + MKV <= Skv && (!causal || k0 + MKV - 1 <= qw) &&
-                        (window <= 0 || qw + 15 - k0 < window);
-    float alpha[2];
+// The online-softmax update of one 64-key tile for this thread's two rows,
+// in log2 units (m is the running max of the scaled scores): turns sc into
+// P (0 where masked), updates m and the running sum l, and gives the
+// rescale alpha of the running output.  The two rows go side by side and
+// each reduction is a tree of four chains, for the instruction-level
+// parallelism one warp a scheduler needs.
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, const Rows& w,
+                                             const Masks& mk) {
+  const bool inside = k0 + WKV <= mk.Skv && (!mk.causal || k0 + WKV - 1 <= w.qwarp) &&
+                      (mk.window <= 0 || w.qwarp + 15 - k0 < mk.window);
+  if (!inside) mask_tile(sc, k0, w, mk);
+  float mx[2][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qi = qw + g + 8 * r;
-      float mx = -INFINITY;
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = s[j][2 * r + e] * scale;
-          if (!inside) {
-            const int kj = k0 + j * 8 + 2 * t + e;
-            const bool keep =
-                kj < Skv && (!causal || qi >= kj) && (window <= 0 || qi - kj < window);
-            x = keep ? x : -INFINITY;
-          }
-          s[j][2 * r + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = expf(m[r] - m_safe);  // 0 while the row has seen no key
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[j][2 * r + e] - m_safe);  // 0 where masked
-          s[j][2 * r + e] = p;
-          rs += p;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[r] = l[r] * alpha[r] + rs;
-      m[r] = m_new;
-    }
-
-    // acc = alpha acc + P V.  The score accumulators of n-tiles 2kk, 2kk+1
-    // are the A fragment of k-step kk, split into its bf16 hi and lo parts.
-    // This tile's P V sums in a fresh accumulator, added to acc here.
-    uint32_t hi[MKV / 16][4], lo[MKV / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < MKV / 16; ++kk) {
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[kk][0], lo[kk][0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[kk][1], lo[kk][1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      float pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < MKV / 16; ++kk) {
-        const __nv_bfloat16* p = Vt + (nd * 8 + g) * VP + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-        mma_bf16(pv, lo[kk], b0, b1);
-        mma_bf16(pv, hi[kk], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] = acc[nd][e] * alpha[e / 2] + pv[e];
-    }
-  }
-
+    for (int c = 0; c < 4; ++c)
+      mx[r][c] = fmaxf(fmaxf(sc[8 * c + 2 * r], sc[8 * c + 2 * r + 1]),
+                       fmaxf(sc[8 * c + 4 + 2 * r], sc[8 * c + 4 + 2 * r + 1]));
+  float m_safe[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = qw + g + 8 * r;
+    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], __fmul_rn(x, mk.scale_log2));
+    m_safe[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(__fsub_rn(m[r], m_safe[r]));  // 0 while the row has seen no key
+    m[r] = m_new;
+  }
+  float rs[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) rs[r][c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * j + 2 * r + e];
+        x = ex2(__fmaf_rn(x, mk.scale_log2, -m_safe[r]));  // 0 where masked
+        rs[r][j % 4] = __fadd_rn(rs[r][j % 4], x);
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = __fadd_rn(__fadd_rn(rs[r][0], rs[r][1]), __fadd_rn(rs[r][2], rs[r][3]));
+    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    l[r] = __fmaf_rn(l[r], alpha[r], x);
+  }
+}
+
+// P as the A operand of keys 16kk..16kk+15: the accumulator's n8 blocks 2kk
+// and 2kk + 1, split into bf16 hi and lo parts
+__device__ __forceinline__ void split_p(const float (&sc)[32], uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      split_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], hi[kk][f], lo[kk][f]);
+}
+
+// S = q K^T for 64 rows x 64 keys: D / 16 k-steps, a k-step 32 bytes along
+// a box's swizzled rows
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+    wgmma_ss(sc, smem_desc(q + off, 16, 1024), smem_desc(k + off, 16, 1024), kk > 0);
+  }
+}
+
+// a tile's P V in a fresh accumulator, one wgmma of N = 64 * NA columns
+// per 16 keys (2048 bytes down each V box), lo then hi
+template <int NA>
+__device__ __forceinline__ void issue_pv(float (&pv)[NA * 32], const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dv = smem_desc(v + kk * 2048, BOX, 1024);
+    wgmma_rs(pv, lo[kk], dv, kk > 0);
+    wgmma_rs(pv, hi[kk], dv, 1);
+  }
+}
+
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
+// period): q as two halves of NA boxes, then STAGES K tiles, STAGES V tiles
+// (NA boxes each), then the barriers.  A box holds 64 rows of 128 bytes.
+template <int D>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                   int Hq, int group, int Sq, int Skv, int causal, int window, float scale_log2) {
+  using R = Ring<D>;
+  constexpr int NA = R::NA;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + R::K_OFF, sV = base + R::V_OFF;
+  const uint32_t q_full = base + R::BAR_OFF;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * STAGES + s); };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WQ;
+  const int hq = blockIdx.y, b = blockIdx.z, hk = hq / group;
+  const int q_last = min(q0 + WQ, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / WKV * WKV : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + WKV - 1) / WKV : 0;
+  const int tid = threadIdx.x, wg = tid / 128;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);  // every consumer warp arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      mbar_expect_tx(q_full, 2 * R::TILE);
+      for (int h = 0; h < 2; ++h)
+        for (int a = 0; a < NA; ++a)
+          tma_load(sQ + (h * NA + a) * BOX, &qmap, q_full, 64 * a, q0 + 64 * h, hq, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, k0 = kv_begin + i * WKV;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // a fresh barrier passes
+        mbar_expect_tx(k_full(s), R::TILE);
+        for (int a = 0; a < NA; ++a)
+          tma_load(sK + s * R::TILE + a * BOX, &kmap, k_full(s), 64 * a, k0, hk, b);
+        mbar_expect_tx(v_full(s), R::TILE);
+        for (int a = 0; a < NA; ++a)
+          tma_load(sV + s * R::TILE + a * BOX, &vmap, v_full(s), 64 * a, k0, hk, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 q rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, t = tid % 128, warp = t / 32, lane = t % 32;
+  const Rows rows{q0 + 64 * c + 16 * warp, q0 + 64 * c + 16 * warp + lane / 4, lane % 4};
+  const Masks masks{Skv, causal, window, scale_log2};
+  const uint32_t my_q = sQ + c * R::TILE;
+
+  // accumulator element 4j + 2r + e: row row0 + 8r, column 8j + 2tq + e
+  float acc[NA * 32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int e = 0; e < NA * 32; ++e) acc[e] = 0.f;
+  float sc[32], pv[NA * 32];
+  uint32_t hi[4][4], lo[4][4];
+
+  // Software pipeline within the warpgroup: Q K^T of tile i + 1 is issued
+  // with P V of tile i, and its softmax runs while P V is in flight.
+  mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    mbar_wait(k_full(0), 0);
+    wg_fence();
+    issue_qk<D>(sc, my_q, sK);
+    wg_commit();
+    wg_wait<0>();
+    hold(sc);
+    softmax_tile(sc, m, l, alpha, kv_begin, rows, masks);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES, s1 = (i + 1) % STAGES;
+    const bool next = i + 1 < n_tiles;
+    split_p(sc, hi, lo);
+    if (next) mbar_wait(k_full(s1), ((i + 1) / STAGES) & 1);
+    mbar_wait(v_full(s), (i / STAGES) & 1);
+    wg_fence();
+    // Q K^T of the next tile, issued with P V of this one; the last
+    // iteration repeats this tile's (still resident) and drops it, since a
+    // wgmma under a branch makes ptxas serialise every wgmma of the kernel
+    issue_qk<D>(sc, my_q, sK + (next ? s1 : s) * R::TILE);
+    wg_commit();
+    issue_pv<NA>(pv, hi, lo, sV + s * R::TILE);
+    wg_commit();
+    float alpha_next[2];
+    wg_wait<1>();  // Q K^T is done, P V may not be
+    hold(sc);
+    if (next) softmax_tile(sc, m, l, alpha_next, kv_begin + (i + 1) * WKV, rows, masks);
+    wg_wait<0>();
+    hold(pv);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hold(hi[kk]);
+      hold(lo[kk]);
+    }
+    if (lane == 0) mbar_arrive(empty(s));  // this warp is done with the stage
+
+#pragma unroll
+    for (int e = 0; e < NA * 32; ++e) acc[e] = __fmaf_rn(acc[e], alpha[(e / 2) % 2], pv[e]);
+    if (next) {
+      alpha[0] = alpha_next[0];
+      alpha[1] = alpha_next[1];
+    }
+  }
+
+  const int row0 = rows.row0, tq = rows.tq;
+
+  o += ((int64_t)b * Hq + hq) * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
     if (qi < Sq) {
       const float den = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(o + (int64_t)qi * D + nd * 8 + 2 * t) =
-            pack_bf16(acc[nd][2 * r] / den, acc[nd][2 * r + 1] / den);
+      for (int j = 0; j < D / 8; ++j)   // D = 96: the last 32 columns are padding
+        *reinterpret_cast<uint32_t*>(o + (int64_t)qi * D + 8 * j + 2 * tq) =
+            pack_bf16(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
     }
   }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (D, S, H, B) bf16 map with (64, 64, 1, 1) boxes, 128-byte swizzle and
+// zero fill out of bounds.  A dimension of extent 1 takes the packed stride,
+// whatever the caller's (it is never stepped).
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                       Strides st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t S1 = S > 0 ? S : 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, S1, (cuuint64_t)H, (cuuint64_t)B};
+  cuuint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
+  const cuuint64_t packed[3] = {2ull * D, 2ull * D * S1, 2ull * D * S1 * H};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = packed[i];
+  const cuuint32_t box[4] = {64, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidPitchValue;
 }
 
 template <int D>
 cudaError_t launch(bool bf16, const void* q, const void* k, const void* v, void* o, int B,
                    int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
                    int causal, int window, cudaStream_t stream) {
-  const float scale = (float)(1.0 / sqrt((double)D));
   cudaError_t err;
   if (bf16) {
-    using T = __nv_bfloat16;
-    constexpr size_t smem = mma_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    CUtensorMap qm, km, vm;
+    if ((err = tensor_map(&qm, q, D, Sq, Hq, B, qs)) != cudaSuccess) return err;
+    if ((err = tensor_map(&km, k, D, Skv, Hkv, B, ks)) != cudaSuccess) return err;
+    if ((err = tensor_map(&vm, v, D, Skv, Hkv, B, vs)) != cudaSuccess) return err;
+    constexpr size_t smem = Ring<D>::SMEM;
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((Sq + MQ - 1) / MQ, Hq, B);
-    flash_mma_kernel<D><<<grid, MTHREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), Hq, Hq / Hkv, Sq, Skv, qs, ks, vs, causal, window, scale);
+    const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+    dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
+    flash_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), Hq, Hq / Hkv, Sq, Skv, causal, window,
+        scale_log2);
   } else {
+    const float scale = (float)(1.0 / sqrt((double)D));
     constexpr size_t smem = smem_bytes<D>();
     err = cudaFuncSetAttribute(flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
@@ -468,8 +632,9 @@ cudaError_t launch(bool bf16, const void* q, const void* k, const void* v, void*
 
 // q, k, v: (B, H, S, D) with the given element strides for B, H and S and a
 // contiguous D; o: contiguous (B, Hq, Sq, D) of q's type.  is_bf16 selects
-// bf16 for all four (rows 16-byte aligned: pointers and strides multiples of
-// 8 elements), else float32.  D must be 64, 96 or 128.
+// bf16 for all four (pointers and the strides of every dimension longer
+// than 1 multiples of 16 bytes, as TMA takes them), else float32.  D must
+// be 64, 96 or 128.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                int is_bf16, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,

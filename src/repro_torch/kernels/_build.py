@@ -5,8 +5,9 @@ C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build
 takes seconds).  All sources are compiled together, one ``nvcc`` process
 each, the first time any kernel is asked for.  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root under a name that
-hashes the source and the flags, so an edited source is never served from
-a stale library.  A failed build or load raises; nothing falls back.
+hashes the source, the headers of ``csrc/`` it includes and the flags, so
+an edited source or header is never served from a stale library.  A failed
+build or load raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -81,11 +83,19 @@ def nvcc_path() -> str:
     return found
 
 
+def _headers(source: pathlib.Path) -> list[pathlib.Path]:
+    """The headers beside ``source`` that it includes by a quoted ``#include``."""
+    names = re.findall(r'^\s*#\s*include\s*"([^"]+)"', source.read_text(), re.MULTILINE)
+    return [source.parent / n for n in names]
+
+
 def _lib_path(stem: str) -> pathlib.Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{stem}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}-{digest}.so"
+    source = CSRC / f"{stem}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in _headers(source):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, ctypes.CDLL]:

@@ -193,8 +193,12 @@ def maxplus_bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # K6: flash attention
 # ======================================================================
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` when every (b, h, s) row starts 16-byte aligned, else an aligned copy."""
-    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+    """``t`` when TMA can load it as it lies, else a contiguous copy.  A bf16
+    tensor map needs a 16-byte aligned base and 16-byte multiples as the
+    strides of its (b, h, s) dims; a dim of extent 1 is never stepped, so
+    its stride does not matter (the kernel replaces it)."""
+    if t.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -221,7 +225,7 @@ def flash_attention(
         raise ValueError(f"flash_attention takes head dims {FLASH_HEAD_DIMS}, got {d}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dimension")
-    if q.dtype == torch.bfloat16:   # the tensor-core body loads rows as 16-byte vectors
+    if q.dtype == torch.bfloat16:   # the tensor-core body loads its tiles by TMA
         q, k, v = (_aligned_rows(t) for t in (q, k, v))
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:

@@ -115,6 +115,99 @@ def test_flash_attention_rejects_what_its_kernel_does_not_take(monkeypatch):
         ops.flash_attention(q[:, :3], kv, kv)
 
 
+class _FakeFlashLib:
+    """Stands in for the built library: records what the wrapper passes."""
+
+    def __init__(self, err=0):
+        self.calls, self.err = [], err
+
+    def flash_attention(self, q, k, v, o, is_bf16, b, hq, hkv, sq, skv, d, *rest):
+        self.calls.append({"ptrs": (q, k, v), "is_bf16": is_bf16,
+                           "shape": (b, hq, hkv, sq, skv, d), "strides": rest[:9],
+                           "causal": rest[9], "window": rest[10]})
+        return self.err
+
+
+def _fake_flash(monkeypatch, err=0):
+    lib = _FakeFlashLib(err)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(_build, "library", lambda stem: lib)
+    return lib
+
+
+def test_flash_attention_passes_tma_loadable_views_as_they_lie(monkeypatch):
+    """Strided and transposed bf16 views whose strides are 16-byte multiples
+    reach the kernel uncopied, with their own strides (the tensor maps
+    take them); the launch is counted once."""
+    lib = _fake_flash(monkeypatch)
+    q = torch.zeros((2, 40, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros((2, 56, 4, 64), dtype=torch.bfloat16)
+    k, v = kv[:, :, :2].transpose(1, 2), kv[:, :, 2:].transpose(1, 2)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=False, window=9)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    (call,) = lib.calls
+    assert call["ptrs"] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert call["strides"] == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    assert call["shape"] == (2, 4, 2, 40, 56, 64) and call["is_bf16"] == 1
+    assert (call["causal"], call["window"]) == (0, 9)
+    assert out.shape == (2, 4, 40, 64) and out.is_contiguous() and out.dtype == torch.bfloat16
+
+
+def test_flash_attention_copies_what_tma_cannot_load(monkeypatch):
+    """A bf16 stride that is not a multiple of 16 bytes, or a base that is
+    not 16-byte aligned, is copied to a contiguous tensor in the wrapper
+    (never routed elsewhere); the stride of a dim of extent 1 does not
+    matter; float32 goes to its body uncopied."""
+    lib = _fake_flash(monkeypatch)
+    wide = torch.zeros((1, 2, 24, 68), dtype=torch.bfloat16)
+    odd_rows = wide[..., :64]                       # row stride 136 bytes
+    shifted = wide.flatten()[4:4 + 2 * 24 * 64].view(1, 2, 24, 64)   # base 8 bytes off
+    ok = torch.zeros((1, 2, 24, 64), dtype=torch.bfloat16)
+    one_head = torch.zeros((1, 24, 1, 64), dtype=torch.bfloat16).transpose(1, 2)
+    one_head = one_head.as_strided(one_head.shape, (24 * 64, 3, 64, 1))   # odd h stride
+    ops.flash_attention(odd_rows, ok, ok)
+    ops.flash_attention(shifted, ok, ok)
+    ops.flash_attention(ok, one_head, one_head)
+    f32 = torch.zeros((1, 2, 24, 72))[..., :64]
+    ops.flash_attention(f32, f32, f32)
+    (c1, c2, c3, c4) = lib.calls
+    assert c1["ptrs"][0] != odd_rows.data_ptr() and c1["strides"][:3] == (2 * 24 * 64, 24 * 64, 64)
+    assert c1["ptrs"][1:] == (ok.data_ptr(), ok.data_ptr())
+    assert c2["ptrs"][0] != shifted.data_ptr() and c2["ptrs"][0] % 16 == 0
+    assert c3["ptrs"][1:] == (one_head.data_ptr(), one_head.data_ptr())
+    assert c3["strides"][3:6] == (24 * 64, 3, 64)
+    assert c4["ptrs"][0] == f32.data_ptr() and c4["is_bf16"] == 0
+    assert c4["strides"][:3] == f32.stride()[:3]
+
+
+def test_flash_attention_raises_on_a_failed_launch(monkeypatch):
+    """A nonzero cudaError_t (a tensor map the driver refused, a launch the
+    card refused) raises and is not counted."""
+    _fake_flash(monkeypatch, err=12)
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="flash_attention failed with cudaError_t 12"):
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+def test_library_name_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """Editing csrc/hopper.cuh renames flash_attention's library, so a stale
+    build is never loaded; a source that includes no header keeps its name."""
+    for name in ("flash_attention.cu", "hopper.cuh", "lif_crossbar.cu"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._headers(tmp_path / "flash_attention.cu") == [tmp_path / "hopper.cuh"]
+    assert _build._headers(tmp_path / "lif_crossbar.cu") == []
+    flash, lif = _build._lib_path("flash_attention"), _build._lib_path("lif_crossbar")
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build._lib_path("flash_attention") != flash
+    assert _build._lib_path("lif_crossbar") == lif
+
+
 def test_lif_and_scan_wrappers_reject_what_their_kernels_do_not_take(monkeypatch):
     """Checked before the build, so these raise here too (routing forced)."""
     monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
@@ -245,6 +338,37 @@ def test_flash_attention_matches_its_plain_version_on_the_card(case, dtype):
     plain = tref.attention_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
     # within one rounding of the output type and 2^-14 of each row's size
+    assert tref.attention_excess(out, plain) <= 1.0
+
+
+#: bf16 cases at the edges of the TMA ring (64-key tiles, 3 stages, 128 q
+#: rows a block); q, k and v are strided views of packed (b, s, h, d) tensors
+FLASH_PIPELINE_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, causal, window)
+    "kv_shorter_than_a_stage": (1, 4, 2, 100, 40, 128, True, 0),
+    "ring_wraps": (1, 4, 1, 1100, 1100, 128, True, 0),
+    "ragged_tiles_non_causal": (1, 2, 2, 333, 461, 64, False, 0),
+    "window_narrower_than_a_tile": (1, 4, 2, 500, 500, 128, True, 24),
+    "batch_strided_kv": (3, 8, 2, 260, 260, 128, True, 0),
+    "d96_ring_wraps": (1, 4, 2, 1200, 1200, 96, True, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_PIPELINE_CASES))
+def test_flash_attention_pipeline_edges_on_the_card(case):
+    dev = _need_cuda()
+    b, hq, hkv, sq, skv, d, causal, window = FLASH_PIPELINE_CASES[case]
+    gen = torch.Generator(device="cpu").manual_seed(7 * sq + skv + d)
+    q = torch.randn(b, sq, hq, d, generator=gen).to(dev, torch.bfloat16).transpose(1, 2)
+    kv = torch.randn(b, skv, 2 * hkv, d, generator=gen).to(dev, torch.bfloat16)
+    k, v = kv[:, :, :hkv].transpose(1, 2), kv[:, :, hkv:].transpose(1, 2)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    plain = tref.attention_ref(q, k, v, causal=causal, window=window)
+    assert out.shape == (b, hq, sq, d) and torch.isfinite(out).all()
     assert tref.attention_excess(out, plain) <= 1.0
 
 
