@@ -38,9 +38,12 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               non-input total within SPIKE_TOTAL_RTOL: the card's atomic adds
               may reorder sums); (b) the example's path over every cluster of
               the admission phase's clustering: one 128x128 crossbar block
-              per cluster, 8 samples of rate-0.15 input spikes, 5 K5 steps
-              with spikes fed back, the whole trajectory bit-identical to the
-              plain version and K5 launched n_clusters x 5 times
+              per cluster, 8 samples of rate-0.15 input spikes, 5 steps with
+              spikes fed back, each step one stacked K5 launch over all the
+              blocks; then the example's own 2-D loop (G = 1 calls) over its
+              first 4 clusters, equal to the stack's rows bit for bit; the
+              whole stacked trajectory bit-identical to the plain version and
+              K5 launched 5 x (1 + 4) times
 8. jamba_serve jamba-v0.1-52b cut to one of its four 8-layer blocks, float32
               params from seed 0, served at the reference's defaults; the
               prefill step on the same prompts launches K7 2 x 7 times and K6
@@ -63,7 +66,11 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               the plain version is printed as library_tol_ratio;
               K7 within kernels/ref.py's SCAN_TOL at its last largest call
               (from combined, nonzero chunk states); K1 and K7, launched on
-              two paths each, also timed at each path's largest call
+              two paths each, also timed at each path's largest call; K1 and
+              K5 also checked and timed at the first call of every distinct
+              shape of each path (``by_shape``: K5's stacked step and the
+              example's G = 1 call; K1's 20 admission and 1 dense shapes,
+              with the launch-weighted ``rule2_ms``)
 
 Launch counts are set to 0 just before each path's phase (2, 3, 5-9) and
 read just after, and reported per path; launches made to compare or time
@@ -116,6 +123,8 @@ PROFILED_DECODE_STEPS = 4
 SNN_APP = "HeartClass"
 SNN_STEPS = 256              # simulate_spikes' default
 CROSSBAR_SAMPLES, CROSSBAR_RATE, CROSSBAR_STEPS = 8, 0.15, 5
+#: clusters the example's own 2-D loop (one G = 1 call a step) runs over
+CROSSBAR_EXAMPLE_CLUSTERS = 4
 #: simulate_spikes card vs host: the card's index_add_ adds with float
 #: atomics in no fixed order, so a membrane value within an ulp of the
 #: threshold may spike on one side only, and feedback carries it on; the
@@ -131,6 +140,9 @@ KEEP_LAST_OF_EQUAL = ("mamba_chunk_scan",)
 #: kernels launched on more than one path at different shapes: each is also
 #: timed at every path's largest call (the rule-2 order weighs launches by it)
 BY_PATH = ("relax_round", "relax_round_witness", "mamba_chunk_scan")
+#: kernels also checked and timed at the first call of every distinct shape
+#: of each path
+BY_SHAPE = ("relax_round", "relax_round_witness", "lif_crossbar_step")
 
 
 def emit(obj) -> None:
@@ -255,6 +267,7 @@ def main() -> None:
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
     flash_largest = {}    # "float32" / "windowed" / "lm_prefill" (qwen2's 32k) -> the same
     path_largest = {k: {} for k in BY_PATH}     # kernel -> {path: the same}
+    first_of_shape = {k: {} for k in BY_SHAPE}  # kernel -> {(path, shape): the same}
 
     def k1_shape(dist, lams, csr):
         return (dist.shape[0] // csr.n_actors, csr.n_actors, int(csr.src.numel()), dist.shape[1])
@@ -268,8 +281,9 @@ def main() -> None:
         "flash_attention": (("B", "Hq", "Hkv", "Sq", "Skv", "D"),
                             lambda q, k, v, **kw: (*q.shape[:2], k.shape[1], q.shape[2],
                                                    k.shape[2], q.shape[3])),
-        "lif_crossbar_step": (("B", "n_in", "n_out"),
-                              lambda s, w, v, **kw: (*s.shape, w.shape[1])),
+        "lif_crossbar_step": (("G", "B", "n_in", "n_out"),
+                              lambda s, w, v, **kw: ((s.shape[0] if s.dim() == 3 else 1),
+                                                     *s.shape[-2:], w.shape[-1])),
         "mamba_chunk_scan": (("B", "L", "D", "N"),
                              lambda x, dt, a, b, c, h0, **kw: (*x.shape, a.shape[1])),
     }
@@ -304,6 +318,9 @@ def main() -> None:
                 if name in BY_PATH:
                     keep_if_larger(path_largest[name], where["path"], name, shape, args, kwargs,
                                    kept)
+                if name in BY_SHAPE:
+                    keep_if_larger(first_of_shape[name], (where["path"], shape), name, shape,
+                                   args, kwargs)
                 if name == "flash_attention":
                     if args[0].dtype == torch.float32:
                         keep_if_larger(flash_largest, "float32", name, shape, args, kwargs)
@@ -638,26 +655,35 @@ def main() -> None:
     v0 = torch.zeros((cl.n_clusters, CROSSBAR_SAMPLES, blocks.shape[2]), device=dev)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    finals, fired = [], 0
-    for c in range(cl.n_clusters):
+    s_k, v_k = s0, v0
+    for _ in range(CROSSBAR_STEPS):       # one stacked launch a step over every block
+        s_k, v_k = ops.lif_crossbar_step(s_k, blocks, v_k)
+    torch.cuda.synchronize()
+    crossbar_s = time.perf_counter() - t
+    # examples/snn_on_tpu.py's own loop, block by block: G = 1 calls
+    t = time.perf_counter()
+    example = []
+    for c in range(CROSSBAR_EXAMPLE_CLUSTERS):
         s_c, v_c = s0[c], v0[c]
         for _ in range(CROSSBAR_STEPS):
             s_c, v_c = ops.lif_crossbar_step(s_c, blocks[c], v_c)
-        finals.append((s_c, v_c))
+        example.append((s_c, v_c))
     torch.cuda.synchronize()
-    crossbar_s = time.perf_counter() - t
+    example_s = time.perf_counter() - t
     snn_launches = dict(ops.LAUNCHES)
     read_into("snn_crossbar")
     where.update(path=None, app=None)
     k5 = snn_launches["lif_crossbar_step"]
-    check(k5 == cl.n_clusters * CROSSBAR_STEPS,
-          f"K5 launched {k5} times, not {cl.n_clusters} clusters x {CROSSBAR_STEPS} steps")
+    check(k5 == CROSSBAR_STEPS * (1 + CROSSBAR_EXAMPLE_CLUSTERS),
+          f"K5 launched {k5} times, not {CROSSBAR_STEPS} stacked steps and "
+          f"{CROSSBAR_EXAMPLE_CLUSTERS} clusters x {CROSSBAR_STEPS} steps of the example's loop")
+    check(all(torch.equal(s_c, s_k[c]) and torch.equal(v_c, v_k[c])
+              for c, (s_c, v_c) in enumerate(example)),
+          "the example's G = 1 trajectories differ from the stacked step's rows")
     # the whole trajectory, all blocks at once through the plain version
     s_p, v_p = s0, v0
     for _ in range(CROSSBAR_STEPS):
         s_p, v_p = ref.lif_crossbar_step_ref(s_p, blocks, v_p)
-    s_k = torch.stack([f[0] for f in finals])
-    v_k = torch.stack([f[1] for f in finals])
     check(torch.equal(s_k, s_p) and torch.equal(v_k, v_p),
           "the crossbar trajectory differs from its plain version")
     emit({"phase": "snn_crossbar", "app": SNN_APP, "neurons": snn.n_neurons,
@@ -672,11 +698,14 @@ def main() -> None:
           "crossbar": {"n_clusters": cl.n_clusters, "samples": CROSSBAR_SAMPLES,
                        "input_rate": CROSSBAR_RATE, "steps": CROSSBAR_STEPS,
                        "build_s": build_s, "wall_s": crossbar_s,
+                       "example_clusters": CROSSBAR_EXAMPLE_CLUSTERS,
+                       "example_wall_s": example_s,
                        "weight_bytes": int(blocks.numel() * blocks.element_size()),
                        "max_inputs": int(n_inputs.max()), "max_members": int(n_members.max()),
-                       "spikes_out": int(s_k.sum()), "plain_trajectory_identical": True},
+                       "spikes_out": int(s_k.sum()), "plain_trajectory_identical": True,
+                       "example_equals_stack_rows": True},
           "launches": snn_launches, "wall_s": time.perf_counter() - t_phase})
-    del blocks, s0, v0, finals, s_k, v_k, s_p, v_p
+    del blocks, s0, v0, example, s_k, v_k, s_p, v_p
 
     # -- 8. jamba's hybrid serving path -----------------------------------
     # one of jamba's four 8-layer blocks: 1 GQA and 7 Mamba mixers, 4 MoE
@@ -888,6 +917,43 @@ def main() -> None:
             }
         return out
 
+    def by_shape(name, work_of, terms_per_s, compare, extra=None, plain=None):
+        """Check and time ``name`` at the first call of every distinct shape
+        of each path: (one row per shape, sum over the shapes of launches x
+        (ms - bound ms)).  ``compare(args, kw)`` gives the kernel's max abs
+        error against its plain version, which must be 0; ``plain(args, kw)``,
+        where given, is timed too."""
+        rows, total = [], 0.0
+        fn = getattr(ops, name)
+        for (path, shape), call in first_of_shape[name].items():
+            args, kw = call["args"], call["kwargs"]
+            err = compare(args, kw)
+            check(err == 0.0, f"{name} differs from its plain version by {err} at {shape}")
+            b_ms, b_by = bound(*work_of(*args), terms_per_s)
+            launches = seen[name][path][shape]
+            ms = timed(lambda: fn(*args, **kw))
+            rows.append({
+                "path": path, "app": call["app"], "shape": dict(zip(shape_of[name][0], shape)),
+                "launches": launches, "max_abs_err": err, "ms": ms, "bound_ms": b_ms,
+                "bound_by": b_by, **(extra(*args) if extra else {}),
+                **({"plain_ms": timed(lambda: plain(args, kw))} if plain else {}),
+            })
+            total += launches * (ms - b_ms)
+        return rows, total
+
+    def k1_compare(name, plain_fn):
+        def compare(args, kw):
+            out, plain = getattr(ops, name)(*args), plain_fn(*args)
+            if name == "relax_round":
+                return max_abs_err(out, plain)
+            check(torch.equal(out[1], plain[1]), f"{name} psrc differs from its plain version")
+            return max_abs_err(out[0], plain[0])
+        return compare
+
+    def in_degree(dist, lams, csr):
+        deg = torch.diff(csr.indptr.long())
+        return {"in_degree_mean": float(deg.double().mean()), "in_degree_max": int(deg.max())}
+
     def k1_work(witness):
         def work_of(dist, lams, csr):
             nk, k = dist.shape
@@ -925,6 +991,9 @@ def main() -> None:
                err, nbytes, e * k, RELAX_TERMS_PER_S, library=library)
         kernels[-1]["by_path"] = by_path(name, k1_work(name == "relax_round_witness"),
                                          RELAX_TERMS_PER_S)
+        kernels[-1]["by_shape"], kernels[-1]["rule2_ms"] = by_shape(
+            name, k1_work(name == "relax_round_witness"), RELAX_TERMS_PER_S,
+            k1_compare(name, plain_fn), extra=in_degree)
 
     # K2, K3 and the G = 1 matmul on the inputs of their largest dense-path call
     for name, replaces, plain_fn in (
@@ -1051,23 +1120,32 @@ def main() -> None:
            library_error=row["library_error"])
     del q, k, v, sdpa, cases
 
-    # K5 on the inputs of its largest call (the example's (8,128)x(128,128))
+    # K5 on the inputs of its largest call (the stacked step over every
+    # HeartClass block), and at each shape's first call (the stack and the
+    # example's G = 1 call)
+    def k5_work(s, w, v, **kw):
+        # s, W and v in; spikes and v out; a multiply-add per term
+        return (s.numel() + w.numel() + 3 * v.numel()) * 4, 2 * v.numel() * s.shape[-1]
+
+    def k5_compare(args, kw):
+        (ks, kv), (ps, pv) = ops.lif_crossbar_step(*args, **kw), \
+            ref.lif_crossbar_step_ref(*args, **kw)
+        return max(max_abs_err(ks, ps), max_abs_err(kv, pv))
+
     s_in, w_in, v_in = largest["lif_crossbar_step"]["args"]
     kw5 = largest["lif_crossbar_step"]["kwargs"]
-    (ks, kv), (ps, pv) = (ops.lif_crossbar_step(s_in, w_in, v_in, **kw5),
-                          ref.lif_crossbar_step_ref(s_in, w_in, v_in, **kw5))
-    b5, n_in5 = s_in.shape
-    n_out5 = w_in.shape[1]
     record("lif_crossbar_step", "src/repro_torch/csrc/lif_crossbar.cu",
            "src/repro/kernels/lif_crossbar.py:87",
            lambda: ops.lif_crossbar_step(s_in, w_in, v_in, **kw5),
            lambda: ref.lif_crossbar_step_ref(s_in, w_in, v_in, **kw5),
-           max(max_abs_err(ks, ps), max_abs_err(kv, pv)),
-           # s, W and v in; spikes and v out; a multiply-add per term
-           (s_in.numel() + w_in.numel() + 3 * v_in.numel()) * 4, 2 * b5 * n_in5 * n_out5,
+           k5_compare((s_in, w_in, v_in), kw5), *k5_work(s_in, w_in, v_in),
            FP32_FLOPS_PER_S,
            library_note="none: no single PyTorch call computes a product fused "
                         "with the threshold and reset")
+    kernels[-1]["by_shape"], kernels[-1]["rule2_ms"] = by_shape(
+        "lif_crossbar_step", k5_work, FP32_FLOPS_PER_S, k5_compare,
+        plain=lambda args, kw: ref.lif_crossbar_step_ref(*args, **kw))
+    del s_in, w_in, v_in, first_of_shape
 
     # K7 on the inputs of its last largest call (jamba's bf16 32k prefill,
     # a second launch: from the combined chunk states)

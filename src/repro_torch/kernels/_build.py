@@ -53,8 +53,8 @@ SIGNATURES = {
                             *[_I64] * 9, _I, _I, _P],
     },
     "lif_crossbar": {
-        # s, w, v, out_s, out_v, B, n_in, n_out, leak, v_th, v_reset, stream
-        "lif_crossbar_step": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+        # s, w, v, out_s, out_v, G, B, n_in, n_out, leak, v_th, v_reset, stream
+        "lif_crossbar_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     },
     "mamba_scan": {
         # x, dt, a, b, c, h0, y, h_out, is_bf16, B, L, D, N, chunk, stream

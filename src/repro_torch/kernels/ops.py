@@ -250,9 +250,18 @@ def lif_crossbar_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One crossbar step: (B, n_in) spikes x (n_in, n_out) weights with
     membrane state (B, n_out) -> ``(out_spikes, v_next)`` (see
-    ``ref.lif_crossbar_step_ref``).  Any B, n_in and n_out; nothing is padded."""
-    b, n_in = spikes.shape
-    if weights.shape[0] != n_in or v.shape != (b, weights.shape[1]):
+    ``ref.lif_crossbar_step_ref``); or a stack of G independent blocks,
+    (G, B, n_in) x (G, n_in, n_out) with (G, B, n_out), in one launch.
+    The 2-D call is the G = 1 launch.  W is never broadcast over G.  Any
+    B, n_in and n_out; nothing is padded."""
+    if spikes.dim() not in (2, 3) or not spikes.dim() == weights.dim() == v.dim():
+        raise ValueError(
+            f"lif_crossbar_step takes 2-D spikes, weights and v or a stack of them, all "
+            f"3-D; got {spikes.dim()}-D, {weights.dim()}-D and {v.dim()}-D"
+        )
+    *lead, b, n_in = spikes.shape
+    if (list(weights.shape[:-2]) != lead or weights.shape[-2] != n_in
+            or tuple(v.shape) != (*lead, b, weights.shape[-1])):
         raise ValueError(
             f"shape mismatch: spikes {tuple(spikes.shape)}, weights "
             f"{tuple(weights.shape)}, v {tuple(v.shape)}"
@@ -266,7 +275,8 @@ def lif_crossbar_step(
         return out_s, out_v
     err = _build.library("lif_crossbar").lif_crossbar_step(
         spikes.data_ptr(), weights.data_ptr(), v.data_ptr(), out_s.data_ptr(),
-        out_v.data_ptr(), b, n_in, weights.shape[1], leak, v_th, v_reset, _stream(v),
+        out_v.data_ptr(), lead[0] if lead else 1, b, n_in, weights.shape[-1], leak, v_th,
+        v_reset, _stream(v),
     )
     _raise_on(err, "lif_crossbar_step")
     LAUNCHES["lif_crossbar_step"] += 1

@@ -266,6 +266,69 @@ def test_relax_round_bit_identical_on_the_card(k):
     assert torch.equal(b1, b2) and torch.equal(p1, p2)
 
 
+#: in-degrees of the skewed CSR: none, one, and for every power-of-two
+#: team width T from 2 to 32 exactly T and 3T + 1, beside several hundred
+SKEWED_DEGREES = (0, 1, 2, 4, 7, 8, 13, 16, 25, 32, 49, 97, 300)
+
+
+def _skewed_csr(k: int, seed: int):
+    """A two-row CSR whose in-degrees cycle through :data:`SKEWED_DEGREES`,
+    with many equal candidates from different sources (small integer dist,
+    w and t) and nodes whose every candidate is -inf (all their sources
+    have dist -inf)."""
+    rng = np.random.default_rng(seed)
+    n_actors, rows = 52, 2
+    n = rows * n_actors
+    degrees = np.array([SKEWED_DEGREES[i % len(SKEWED_DEGREES)] for i in range(n)])
+    dst = np.repeat(np.arange(n), degrees)
+    row = dst // n_actors
+    dead = np.zeros(n, dtype=bool)
+    dead[rng.choice(n, n // 5, replace=False)] = True
+    src = row * n_actors + rng.integers(0, n_actors, dst.size)
+    # every fifth node that has edges draws its sources from the dead nodes
+    for v in np.flatnonzero(degrees)[::5]:
+        pool = np.flatnonzero(dead[v // n_actors * n_actors:(v // n_actors + 1) * n_actors])
+        src[dst == v] = v // n_actors * n_actors + rng.choice(pool, degrees[v])
+    w = rng.integers(0, 2, dst.size).astype(np.float64)
+    t = rng.integers(0, 2, dst.size).astype(np.float64)
+    dist = rng.integers(0, 3, (n, k)).astype(np.float64)
+    dist[dead] = -np.inf
+    lams = rng.integers(0, 2, (rows, k)).astype(np.float64)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(degrees, out=indptr[1:])
+    csr = tref.RelaxCSR(
+        n_actors=n_actors, indptr=torch.as_tensor(indptr, dtype=torch.int32),
+        src=torch.as_tensor(src, dtype=torch.int32), w=torch.as_tensor(w),
+        t=torch.as_tensor(t), dst=torch.as_tensor(dst), dst_row=torch.as_tensor(row))
+    return csr, torch.as_tensor(dist), torch.as_tensor(lams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("k", [1, 3])
+def test_relax_round_bit_identical_on_skewed_degrees(k, seed):
+    """K1 and K1w on skewed in-degrees (a team's width, more than a pass
+    of its lanes, several hundred), ties and all--inf nodes: values and
+    psrc equal to the plain versions."""
+    dev = _need_cuda()
+    csr, dist, lams = _skewed_csr(k, seed)
+    gpu, dist, lams = _to(csr, dev), dist.to(dev), lams.to(dev)
+    before = dict(ops.LAUNCHES)
+    best = ops.relax_round(dist, lams, gpu)
+    b1, p1 = ops.relax_round_witness(dist, lams, gpu)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["relax_round"] == before["relax_round"] + 1
+    assert ops.LAUNCHES["relax_round_witness"] == before["relax_round_witness"] + 1
+    plain = tref.segment_relax_ref(dist, lams, gpu)
+    b2, p2 = tref.segment_relax_witness_ref(dist, lams, gpu)
+    assert torch.equal(best, plain) and torch.equal(b1, b2) and torch.equal(p1, p2)
+    # the input exercises what it claims: ties, all--inf nodes with edges
+    cand = tref._candidates(dist, lams, gpu)
+    has_in = torch.diff(gpu.indptr.long()) > 0
+    assert int((cand == b2[gpu.dst]).sum()) > int(has_in.sum()) * k
+    assert bool((torch.isneginf(b2) & has_in[:, None] & (p2 >= 0)).any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 70, 50, 90), (1, 150, 150, 1), (2, 1, 7, 129)])
 def test_maxplus_products_bit_identical_on_the_card(shape):
@@ -411,6 +474,34 @@ def test_lif_crossbar_step_bit_identical_on_the_card(shape):
     fired, reset = ops.lif_crossbar_step(torch.ones((8, 128), device=dev), w0,
                                          torch.zeros((8, 128), device=dev))
     assert (fired[:, 0] == 1).all() and (reset[:, 0] == 0).all() and (fired[:, 1:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 37])
+@pytest.mark.parametrize("g", [1, 7, 40, 150])
+def test_stacked_lif_crossbar_step_bit_identical_on_the_card(g, b):
+    """One launch per stacked call over G blocks, ragged B, n_in and n_out
+    (the 4-byte copy path where n_out is not a multiple of 4, and for a W
+    that is not 16-byte aligned); G = 150 fills the SMs, so a thread
+    keeps 8 rows there, 4 in the smaller stacks."""
+    dev = _need_cuda()
+    for n_in in (128, 129, 65):
+        for n_out in (128, 129, 65):
+            gen = torch.Generator(device="cpu").manual_seed(g * b + n_in + n_out)
+            s = (torch.rand(g, b, n_in, generator=gen) < 0.2).float().to(dev)
+            w = (0.3 * torch.randn(g, n_in, n_out, generator=gen)).to(dev)
+            v = torch.randn(g, b, n_out, generator=gen).to(dev)
+            unaligned = torch.empty(w.numel() + 1, device=dev)[1:].view(w.shape)
+            unaligned.copy_(w)
+            plain_s, plain_v = tref.lif_crossbar_step_ref(s, w, v, leak=0.8, v_th=0.5)
+            for weights in (w, unaligned):
+                before = ops.LAUNCHES["lif_crossbar_step"]
+                out_s, out_v = ops.lif_crossbar_step(s, weights, v, leak=0.8, v_th=0.5)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["lif_crossbar_step"] == before + 1
+                assert torch.equal(out_s, plain_s) and torch.equal(out_v, plain_v), \
+                    (g, b, n_in, n_out, weights.data_ptr() % 16)
+            assert plain_s.sum() > 0
 
 
 # ======================================================================

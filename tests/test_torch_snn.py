@@ -99,6 +99,42 @@ def test_lif_crossbar_step_stacked_blocks_equal_their_own_calls():
         assert torch.equal(one_s, stack_s[i]) and torch.equal(one_v, stack_v[i])
 
 
+@pytest.mark.parametrize("g,b,n_in,n_out", [(1, 8, 128, 128), (3, 37, 129, 65), (5, 5, 65, 129)])
+def test_stacked_lif_crossbar_step_matches_the_reference_per_block(g, b, n_in, n_out):
+    """The wrapper's stacked form, (G, B, n_in) x (G, n_in, n_out), against
+    the reference's Pallas kernel (interpret mode) called once per block,
+    and against the port's own 2-D call bit for bit."""
+    rng = np.random.default_rng(g * 1000 + b)
+    s = (rng.random((g, b, n_in)) < 0.2).astype(np.float32)
+    w = (rng.normal(size=(g, n_in, n_out)) * 0.3).astype(np.float32)
+    v = rng.normal(size=(g, b, n_out)).astype(np.float32)
+    port_s, port_v = tops.lif_crossbar_step(_t(s), _t(w), _t(v), leak=0.8, v_th=0.5, v_reset=-0.25)
+    assert port_s.shape == port_v.shape == (g, b, n_out)
+    for i in range(g):
+        ref_s, ref_v = rops.lif_crossbar_step(s[i], w[i], v[i], leak=0.8, v_th=0.5, v_reset=-0.25)
+        np.testing.assert_array_equal(port_s[i].numpy(), np.asarray(ref_s))
+        np.testing.assert_allclose(port_v[i].numpy(), np.asarray(ref_v), atol=V_ATOL)
+        one_s, one_v = tops.lif_crossbar_step(_t(s[i]), _t(w[i]), _t(v[i]), leak=0.8, v_th=0.5,
+                                              v_reset=-0.25)
+        assert torch.equal(one_s, port_s[i]) and torch.equal(one_v, port_v[i])
+    assert port_s.sum() > 0
+
+
+@pytest.mark.parametrize("case", ["leading_dims_differ", "weights_not_stacked", "four_d"])
+def test_lif_crossbar_step_rejects_shapes_it_does_not_take(case):
+    """W is never broadcast over G, leading dimensions must agree, and a
+    stack has exactly one leading dimension (checked on either device)."""
+    s, w, v = torch.zeros((3, 8, 16)), torch.zeros((3, 16, 4)), torch.zeros((3, 8, 4))
+    if case == "leading_dims_differ":
+        args = (s, w[:2], v)
+    elif case == "weights_not_stacked":
+        args = (s, w[0], v)
+    else:
+        args = (s[None], w[None], v[None])
+    with pytest.raises(ValueError, match="shape mismatch|2-D"):
+        tops.lif_crossbar_step(*args)
+
+
 # ======================================================================
 # the example's path: one crossbar block per cluster, spikes fed back
 # ======================================================================
