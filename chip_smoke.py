@@ -33,10 +33,10 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               (1, 8192), whose 4096-token window runs the kernel's window
               branch; each model is freed before the next
 7. snn_crossbar the SNN execution path on HeartClass (24,732 neurons, 2.4M
-              synapses): (a) simulate_spikes on the card, 256 steps, rerun on
-              the host with the same draws (input counts identical, the
-              non-input total within SPIKE_TOTAL_RTOL: the card's atomic adds
-              may reorder sums); (b) the example's path over every cluster of
+              synapses): (a) simulate_spikes on the card, 256 steps, twice,
+              and on the host with the same draws: every neuron's count the
+              same in all three (the synaptic sum, spike_input, adds in a
+              fixed order); (b) the example's path over every cluster of
               the admission phase's clustering: one 128x128 crossbar block
               per cluster, 8 samples of rate-0.15 input spikes, 5 steps with
               spikes fed back, each step one stacked K5 launch over all the
@@ -46,12 +46,15 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               K5 launched 5 x (1 + 4) times
 8. jamba_serve jamba-v0.1-52b cut to one of its four 8-layer blocks, float32
               params from seed 0, served at the reference's defaults; the
-              prefill step on the same prompts launches K7 2 x 7 times and K6
-              once; the first Mamba layer's prefill output (K7, combine, K7)
-              held against its token-by-token decode (plain) within
-              MAMBA_CONTEXT_TOL of the decode output's rms
+              prefill step on the same prompts (one chunk) launches K7 7 times
+              (no states pass, no combine) and K6 once; the first Mamba
+              layer's prefill output (K7) held against its token-by-token
+              decode (plain) within MAMBA_CONTEXT_TOL of the decode output's rms
 9. jamba_prefill the same cut in bf16 params at (1, 32768) tokens,
-              prefill_32k's length with the batch cut from 32 to 1
+              prefill_32k's length with the batch cut from 32 to 1: each of
+              the 7 Mamba layers launches K7's states-only pass, the combine
+              and K7 once each; a second, profiled run splits their device
+              time into the three
 10. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
               2-9: K1-K5 bit-identical; flash attention, also at its largest
@@ -65,7 +68,10 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               masks (a boolean mask for the window), whose own distance from
               the plain version is printed as library_tol_ratio;
               K7 within kernels/ref.py's SCAN_TOL at its last largest call
-              (from combined, nonzero chunk states); K1 and K7, launched on
+              (from combined, nonzero chunk states), its states-only pass
+              within half the state's limit (and equal to the full launch's
+              states in the same exp mode), the combine within the state's
+              limit; spike_input bit-identical to the host's; K1 and K7, launched on
               two paths each, also timed at each path's largest call; K1 and
               K5 also checked and timed at the first call of every distinct
               shape of each path (``by_shape``: K5's stacked step and the
@@ -87,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -125,11 +132,6 @@ SNN_STEPS = 256              # simulate_spikes' default
 CROSSBAR_SAMPLES, CROSSBAR_RATE, CROSSBAR_STEPS = 8, 0.15, 5
 #: clusters the example's own 2-D loop (one G = 1 call a step) runs over
 CROSSBAR_EXAMPLE_CLUSTERS = 4
-#: simulate_spikes card vs host: the card's index_add_ adds with float
-#: atomics in no fixed order, so a membrane value within an ulp of the
-#: threshold may spike on one side only, and feedback carries it on; the
-#: non-input spike totals may differ by this share
-SPIKE_TOTAL_RTOL = 1e-2
 #: the first Mamba layer's prefill (chunked scan, K7) against its decode
 #: recurrence (plain), float32: at most this share of the decode output's rms
 MAMBA_CONTEXT_TOL = 1e-4
@@ -286,6 +288,11 @@ def main() -> None:
                                                      *s.shape[-2:], w.shape[-1])),
         "mamba_chunk_scan": (("B", "L", "D", "N"),
                              lambda x, dt, a, b, c, h0, **kw: (*x.shape, a.shape[1])),
+        "mamba_chunk_states": (("B", "L", "D", "N"),
+                               lambda x, dt, a, b, **kw: (*x.shape, a.shape[1])),
+        "mamba_chunk_combine": (("B", "L", "D", "N"),
+                                lambda dt, a, s_local, **kw: (*dt.shape, a.shape[1])),
+        "spike_input": (("n", "E"), lambda s, csr: (s.shape[0], int(csr.pre.numel()))),
     }
 
     def work(name, shape):    # E*K terms for K1, the product of the dims otherwise
@@ -626,22 +633,25 @@ def main() -> None:
     where.update(path="snn_crossbar", app=SNN_APP)
     reset()
     snn = snns[SNN_APP]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    counts_card = lif.simulate_spikes(snn, n_steps=SNN_STEPS, device=dev)
-    sim_card_s = time.perf_counter() - t
+    sim_card_s = []
+    runs_card = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runs_card.append(lif.simulate_spikes(snn, n_steps=SNN_STEPS, device=dev))
+        sim_card_s.append(time.perf_counter() - t)
+    counts_card = runs_card[0]
     draws = lif.input_draws(snn.n_neurons, SNN_STEPS, 0, dev).cpu()
     t = time.perf_counter()
     counts_host = lif._simulate(*lif.snn_tensors(snn, "cpu"), draws,
                                 params=lif.LIFParams()).numpy().astype(np.float64)
     sim_host_s = time.perf_counter() - t
     is_in = snn.layer_of == 0
-    total_card, total_host = counts_card[~is_in].sum(), counts_host[~is_in].sum()
-    sim_rel = abs(total_card - total_host) / max(total_host, 1.0)
-    check(np.array_equal(counts_card[is_in], counts_host[is_in]),
-          "simulate_spikes: input-layer counts differ between card and host")
-    check(total_host > 0 and sim_rel <= SPIKE_TOTAL_RTOL,
-          f"simulate_spikes: non-input totals {total_card} (card) and {total_host} (host)")
+    check(np.array_equal(runs_card[1], counts_card),
+          "simulate_spikes: two card runs give different counts")
+    differ = int((counts_card != counts_host).sum())
+    check(differ == 0, f"simulate_spikes: {differ} neurons' counts differ between card and host")
+    check(counts_host[~is_in].sum() > 0, "simulate_spikes: no non-input neuron spiked")
 
     # the example's path over every cluster: one block each, spikes fed back
     cl = ctl.artifacts[(SNN_APP, DYNAP_SE_1024)].clustered
@@ -689,12 +699,9 @@ def main() -> None:
     emit({"phase": "snn_crossbar", "app": SNN_APP, "neurons": snn.n_neurons,
           "synapses": snn.n_synapses,
           "simulate": {"steps": SNN_STEPS, "card_s": sim_card_s, "host_s": sim_host_s,
-                       "input_counts_identical": True,
-                       "non_input_total_card": float(total_card),
-                       "non_input_total_host": float(total_host),
-                       "non_input_total_rel": float(sim_rel),
-                       "limit_rel": SPIKE_TOTAL_RTOL,
-                       "share_of_neurons_equal": float(np.mean(counts_card == counts_host))},
+                       "counts_identical_card_card_host": True,
+                       "non_input_spikes": float(counts_host[~is_in].sum()),
+                       "input_spikes": float(counts_host[is_in].sum())},
           "crossbar": {"n_clusters": cl.n_clusters, "samples": CROSSBAR_SAMPLES,
                        "input_rate": CROSSBAR_RATE, "steps": CROSSBAR_STEPS,
                        "build_s": build_s, "wall_s": crossbar_s,
@@ -756,8 +763,11 @@ def main() -> None:
           and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(), "jamba: bad generated tokens")
     check(prefill_logits.shape == (args.requests, args.prompt_len, cfg.vocab)
           and bool(torch.isfinite(prefill_logits).all()), "jamba: prefill logits not finite")
-    check(k7 == 2 * n_mamba and k6 == n_gqa,
-          f"jamba's prefill step launched K7 {k7} and K6 {k6} times, not {2 * n_mamba} and {n_gqa}")
+    k7_first = {k: ops.LAUNCHES[k] - before[k] for k in ("mamba_chunk_states",
+                                                          "mamba_chunk_combine")}
+    check(k7 == n_mamba and k6 == n_gqa and not any(k7_first.values()),
+          f"jamba's one-chunk prefill step launched K7 {k7}, K6 {k6} times and {k7_first}, "
+          f"not {n_mamba}, {n_gqa} and none")
     # K7 in context: the first Mamba layer's prefill against its decode
     check(cfg.stacks[0][1][0].mixer == "mamba", "jamba's layer 0 is not a Mamba layer")
 
@@ -804,6 +814,7 @@ def main() -> None:
     t_phase = time.perf_counter()
     where.update(path="jamba_prefill", app=cfg.name)
     seq = SHAPES["prefill_32k"]["seq_len"]
+    scan_parts = ("mamba_chunk_states", "mamba_chunk_combine", "mamba_chunk_scan")
     reset()
     params = ttf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dtype=cfg.activation_dtype)
@@ -814,24 +825,43 @@ def main() -> None:
     logits = tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    check(logits.shape == (1, seq, cfg.vocab) and logits.dtype == cfg.activation_dtype,
+          f"jamba: logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "jamba: bf16 prefill logits not finite")
     prefill_launches = dict(ops.LAUNCHES)
     combine = ops.COMBINE_LAUNCHES["mamba_scan"]
     read_into("jamba_prefill")
     where.update(path=None, app=None)
+    # the Mamba layers' scan split into its three launches: device time by
+    # kernel name in a second, profiled run (the first one's wall stays
+    # unprofiled; this run's launches are not counted)
+    del logits
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    scan_ms = {"states_pass": 0.0, "combine": 0.0, "full_pass": 0.0}
+    for key, us in device_us(prof).items():
+        if "mamba_chunk_combine_kernel" in key:
+            scan_ms["combine"] += us / 1e3
+        elif "mamba_chunk_scan_kernel" in key:   # template <N, T, WRITE_Y, FAST>
+            scan_ms["full_pass" if ", true, false>" in key else "states_pass"] += us / 1e3
+    del prof
     check(prefill_launches["flash_attention"] == n_gqa
-          and prefill_launches["mamba_chunk_scan"] == 2 * n_mamba,
-          f"jamba's bf16 prefill launched K6 {prefill_launches['flash_attention']} and K7 "
-          f"{prefill_launches['mamba_chunk_scan']} times")
-    check(logits.shape == (1, seq, cfg.vocab) and logits.dtype == cfg.activation_dtype,
-          f"jamba: logits {tuple(logits.shape)} {logits.dtype}")
-    check(bool(torch.isfinite(logits).all()), "jamba: bf16 prefill logits not finite")
+          and all(prefill_launches[k] == n_mamba for k in scan_parts) and combine == n_mamba,
+          f"jamba's bf16 prefill launched K6 {prefill_launches['flash_attention']} times, "
+          f"{ {k: prefill_launches[k] for k in scan_parts} } and {combine} combines, "
+          f"not {n_gqa} and {n_mamba} each")
     emit({"phase": "jamba_prefill", "arch": cfg.name, "tokens": [1, seq],
           "reduced": reduced_note + "; batch 1 of prefill_32k's 32",
           "params_dtype": str(cfg.activation_dtype), "wall_s_prefill": wall,
           "tokens_per_s": seq / wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
           "combine_launches": combine, "launches": prefill_launches,
+          "mamba_scan_device_ms": {**scan_ms, "layers": n_mamba,
+                                   "source": "torch.profiler, a second run"},
           "wall_s": time.perf_counter() - t_phase})
-    del params, tokens, logits
+    del params, tokens
     torch.cuda.empty_cache()
 
     # -- 10. kernels against their plain versions --------------------------
@@ -1153,14 +1183,10 @@ def main() -> None:
     chunk7 = largest["mamba_chunk_scan"]["kwargs"].get("chunk", 128)
     (ky, kh), (py, ph) = (ops.mamba_chunk_scan(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
                           ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, h07, chunk=chunk7))
-    y_ratio = ref.scan_excess(ky, py, chunk7)
+    y_ratio, h_ratio = ref.scan_excess(ky, py, chunk7), ref.state_excess(kh, ph)
     rtol7, row_tol7 = ref.SCAN_TOL[torch.float32]
-    h_rms = ph.square().mean(dim=-1, keepdim=True).sqrt()
-    h_diff = (kh - ph).abs()
-    h_ratio = float(torch.where(h_diff == 0, torch.zeros_like(h_diff),
-                                h_diff / (rtol7 * ph.abs() + row_tol7 * h_rms)).max())
     y_err, h_err = max_abs_err(ky, py), max_abs_err(kh, ph)
-    del ky, kh, py, ph, h_rms, h_diff
+    del ky, kh, py, ph
     def k7_work(x, dt, a, b, c, h0):
         bsz, length, d = x.shape
         # x, dt and y; B and C; a; h0 and h_out.  Per (b, t, d, n) term seven
@@ -1186,6 +1212,101 @@ def main() -> None:
            library_note="none: no single PyTorch call computes a selective scan")
     kernels[-1]["by_path"] = by_path("mamba_chunk_scan", k7_work, FP32_FLOPS_PER_S)
     del x7, dt7, a7, b7, c7, h07, path_largest
+
+    # K7's states-only pass on the inputs of its largest call (jamba's bf16
+    # 32k prefill), from zero states: within half the state's limit of the
+    # plain version where it decays by exp2, and equal to the full launch's
+    # states in the same exp mode; the full launch's y in that mode is only
+    # read (why the full launch keeps the exact expf)
+    x7, dt7, a7, b7 = largest["mamba_chunk_states"]["args"]
+    chunk7 = largest["mamba_chunk_states"]["kwargs"].get("chunk", 128)
+    zeros7 = torch.zeros((x7.shape[0], -(-x7.shape[1] // chunk7), x7.shape[2], a7.shape[1]),
+                         device=dev)
+    ks = ops.mamba_chunk_states(x7, dt7, a7, b7, chunk=chunk7)
+    py, ps = ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, b7, zeros7, chunk=chunk7)
+    s_ratio, s_err = ref.state_excess(ks, ps), max_abs_err(ks, ps)
+    fy, fh = torch.empty_like(x7), torch.empty_like(zeros7)
+    ops._scan_launch(x7, dt7, a7, b7, b7, zeros7, fy, fh, chunk7, ops.STATES_FAST_EXP,
+                     "mamba_chunk_scan")
+    states_equal_full = bool(torch.equal(ks, fh))
+    full_same_mode_y_ratio = ref.scan_excess(fy, py, chunk7)
+    del fy, fh, py
+    check(states_equal_full, "the states-only pass differs from the full launch's states")
+    check(s_ratio <= (0.5 if ops.STATES_FAST_EXP else 0.0),
+          f"the states-only pass is {s_ratio} times the state's limit")
+
+    def states_work(x, dt, a, b):
+        bsz, length, d = x.shape
+        # x, dt and B in, a in, the states out; per (b, t, d, n) term dt*a,
+        # exp, (dt*x)*B and the update's FMA
+        nbytes = (2 * x.numel() + b.numel()) * x.element_size() + a.numel() * 4 \
+            + bsz * (-(-length // chunk7)) * d * a.shape[1] * 4
+        return nbytes, 4 * bsz * length * d * a.shape[1] + bsz * length * d
+
+    record("mamba_chunk_states", "src/repro_torch/csrc/mamba_scan.cu",
+           "src/repro/kernels/mamba_scan.py:96",
+           lambda: ops.mamba_chunk_states(x7, dt7, a7, b7, chunk=chunk7),
+           lambda: ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, b7, zeros7, chunk=chunk7),
+           s_err, *states_work(x7, dt7, a7, b7), FP32_FLOPS_PER_S, tol_ratio=s_ratio,
+           tolerance={"state_rtol": rtol7, "state_row_tol": row_tol7, "limit": 0.5},
+           fast_exp=ops.STATES_FAST_EXP, equals_full_launch_states=states_equal_full,
+           full_launch_same_exp_y_tol_ratio=full_same_mode_y_ratio,
+           dtype=str(x7.dtype).split(".")[-1], chunk=chunk7,
+           ex2_bound_ms=1e3 * terms7 / EX2_PER_S,
+           library_note="none: no single PyTorch call computes a selective scan")
+
+    # the combine on the inputs of its largest call (the same prefill)
+    dt8, a8, s8 = largest["mamba_chunk_combine"]["args"]
+    chunk8 = largest["mamba_chunk_combine"]["kwargs"].get("chunk", 128)
+    kc, pc = (ops.mamba_chunk_combine(dt8, a8, s8, chunk=chunk8),
+              ref.mamba_combine_ref(dt8, a8, s8, chunk=chunk8))
+    c_ratio, c_err = ref.state_excess(kc, pc), max_abs_err(kc, pc)
+    del kc, pc
+    # dt in, a in, the local states in and the initial states out; per
+    # (b, chunk, d, n) the decay's multiply and exp, the update's multiply
+    # and add; per (b, t, d) the dt sum's add
+    record("mamba_chunk_combine", "src/repro_torch/csrc/mamba_scan.cu",
+           "src/repro/kernels/ops.py:219",
+           lambda: ops.mamba_chunk_combine(dt8, a8, s8, chunk=chunk8),
+           lambda: ref.mamba_combine_ref(dt8, a8, s8, chunk=chunk8),
+           c_err, dt8.numel() * dt8.element_size() + a8.numel() * 4 + 2 * s8.numel() * 4,
+           4 * s8.numel() + dt8.numel(), FP32_FLOPS_PER_S, tol_ratio=c_ratio,
+           tolerance={"state_rtol": rtol7, "state_row_tol": row_tol7}, chunk=chunk8,
+           replaces_note="not a Pallas kernel: the lax.scan combine of the reference's "
+                         "ops.mamba_scan, between its two Pallas launches",
+           library_note="none: no single PyTorch call computes the chunk recurrence")
+    del x7, dt7, a7, b7, zeros7, ks, ps, dt8, a8, s8
+
+    # spike_input on the inputs of its largest call (HeartClass's recording),
+    # against the plain version on the host (the card's index_add_ adds in no
+    # fixed order); the yardstick is one CSR sparse matrix-vector product
+    s9, csr9 = largest["spike_input"]["args"]
+    csr9_host = ref.SynapseCSR(**{f: getattr(csr9, f).cpu()
+                                  for f in ("indptr", "pre", "weight", "post")})
+    k9 = ops.spike_input(s9, csr9)
+    check(torch.equal(ops.spike_input(s9, csr9), k9), "spike_input differs between two launches")
+    err9 = max_abs_err(k9.cpu(), ref.spike_input_ref(s9.cpu(), csr9_host))
+    n9, e9 = csr9.n_neurons, int(csr9.pre.numel())
+    deg9 = torch.diff(csr9.indptr.long())
+    with warnings.catch_warnings():       # sparse CSR support is in beta
+        warnings.simplefilter("ignore")
+        sparse9 = torch.sparse_csr_tensor(csr9.indptr, csr9.pre, csr9.weight, (n9, n9))
+    try:
+        (sparse9 @ s9).sum().item()
+        library9, library9_error = (lambda: sparse9 @ s9), None
+    except RuntimeError as e:      # no sparse product for these index types
+        library9, library9_error = None, str(e).splitlines()[0][:200]
+    # indptr, pre and w in, s in, i out; a multiply and an add a synapse
+    record("spike_input", "src/repro_torch/csrc/spike_input.cu",
+           "src/repro/core/lif.py:58",
+           lambda: ops.spike_input(s9, csr9), lambda: ref.spike_input_ref(s9, csr9),
+           err9, 4 * (n9 + 1) + 8 * e9 + 8 * n9, 2 * e9, FP32_FLOPS_PER_S,
+           library=library9, library_call="torch.sparse_csr_tensor(indptr, pre, w) @ s",
+           library_error=library9_error, plain_device="cuda (index_add_, no fixed order)",
+           replaces_note="not a Pallas kernel: the reference's jax.ops.segment_sum",
+           in_degree_mean=float(deg9.double().mean()), in_degree_max=int(deg9.max()),
+           equal_in_two_launches=True)
+    del s9, csr9, csr9_host, k9, sparse9
 
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} never launched on the main path")

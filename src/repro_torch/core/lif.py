@@ -6,10 +6,13 @@ input on layer 0 and leaky-integrate-and-fire dynamics everywhere else, and
 records per-neuron spike counts.  Those counts feed the partitioner exactly
 like the CARLsim recordings in the paper (§2.4).
 
-The synaptic accumulate (``I[post] += w * s[pre]``) is an ``index_add_``
-over the synapse list (on the card its float atomics may add in another
-order from run to run); the *clustered* execution path (dense 128x128
-crossbar blocks) is K5, ``kernels.ops.lif_crossbar_step``.
+The synaptic accumulate (``I[post] += w * s[pre]``) is
+``kernels.ops.spike_input`` over the synapses sorted stably by ``post``: it
+adds each neuron's synapses in synapse order, so the counts are the same
+bit for bit on the card, on the host and from run to run (the counts feed
+``partition_greedy``, whose clustering is bit-identical); the *clustered*
+execution path (dense 128x128 crossbar blocks) is K5,
+``kernels.ops.lif_crossbar_step``.
 
 The reference draws its Poisson input with ``jax.random``, which PyTorch
 cannot reproduce: :func:`_simulate` takes the uniform draws themselves, and
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..kernels import ops
+from ..kernels.ref import SynapseCSR
 from .snn import SNN
 
 
@@ -39,9 +44,7 @@ class LIFParams:
 
 @torch.no_grad()
 def _simulate(
-    pre: torch.Tensor,
-    post: torch.Tensor,
-    weight: torch.Tensor,
+    synapses: SynapseCSR,
     is_input: torch.Tensor,
     draws: torch.Tensor,
     *,
@@ -49,22 +52,23 @@ def _simulate(
 ) -> torch.Tensor:
     """Run LIF dynamics; returns per-neuron spike counts (float32).
 
-    pre, post: (n_synapses,) int64; weight: (n_synapses,) float32;
-    is_input: (n_neurons,) bool; draws: (n_steps, n_neurons) uniform [0, 1)
-    float32, step t's input neuron i spiking where ``draws[t, i] <
-    input_rate``.  All on one device.
+    synapses: the destination-sorted float32 synapses; is_input:
+    (n_neurons,) bool; draws: (n_steps, n_neurons) uniform [0, 1) float32,
+    step t's input neuron i spiking where ``draws[t, i] < input_rate``.
+    All on one device.
     """
     n_steps, n = draws.shape
-    dev = weight.device
-    v = torch.zeros((n,), dtype=weight.dtype, device=dev)
+    dev = synapses.weight.device
+    dtype = synapses.weight.dtype
+    v = torch.zeros((n,), dtype=dtype, device=dev)
     refr = torch.zeros((n,), dtype=torch.int32, device=dev)
-    counts = torch.zeros((n,), dtype=weight.dtype, device=dev)
+    counts = torch.zeros((n,), dtype=dtype, device=dev)
     not_input = ~is_input
     for t in range(n_steps):
         in_spike = (draws[t] < params.input_rate) & is_input
         fired = ((v >= params.v_threshold) & (refr <= 0) & not_input) | in_spike
-        s = fired.to(weight.dtype)
-        i_syn = torch.zeros_like(v).index_add_(0, post, weight * s[pre])
+        s = fired.to(dtype)
+        i_syn = ops.spike_input(s, synapses)
         v = torch.where(fired, params.v_reset, v * params.leak) \
             + torch.where(is_input, 0.0, i_syn)
         refr = torch.where(fired, params.refractory, torch.clamp_min(refr - 1, 0)).to(torch.int32)
@@ -97,16 +101,28 @@ def input_draws(n_neurons: int, n_steps: int, seed: int, device) -> torch.Tensor
 
 
 def snn_tensors(snn: SNN, device):
-    """(pre, post, weight, is_input) of ``snn`` on ``device``, as the
-    simulator takes them: excitatory-biased weights ``|w| / 2`` so that
-    activity propagates through rate-coded nets, and layer 0 as input."""
+    """(synapses, is_input) of ``snn`` on ``device``, as the simulator takes
+    them: the synapses sorted stably by their postsynaptic neuron (a CSR
+    whose neurons keep their synapses in the SNN's order), with
+    excitatory-biased weights ``|w| / 2`` so that activity propagates
+    through rate-coded nets, and layer 0 as input."""
     dev = resolve(device)
-    w = np.abs(snn.weight) * 0.5
-    return (
-        torch.as_tensor(snn.pre, dtype=torch.int64, device=dev),
-        torch.as_tensor(snn.post, dtype=torch.int64, device=dev),
-        torch.as_tensor(w, dtype=torch.float32, device=dev),
-        torch.as_tensor(snn.layer_of == 0, device=dev),
+    synapses = synapse_csr(snn.pre, snn.post, np.abs(snn.weight) * 0.5, snn.n_neurons, dev)
+    return synapses, torch.as_tensor(snn.layer_of == 0, device=dev)
+
+
+def synapse_csr(pre, post, weight, n_neurons: int, device) -> SynapseCSR:
+    """The synapses ``(pre, post, weight)`` (numpy, one entry a synapse) as a
+    float32 :class:`SynapseCSR` on ``device``, sorted stably by ``post``."""
+    order = np.argsort(post, kind="stable")
+    post = np.asarray(post, dtype=np.int64)[order]
+    indptr = np.zeros(n_neurons + 1, dtype=np.int64)
+    np.cumsum(np.bincount(post, minlength=n_neurons), out=indptr[1:])
+    return SynapseCSR(
+        indptr=torch.as_tensor(indptr, dtype=torch.int32, device=device),
+        pre=torch.as_tensor(np.asarray(pre)[order], dtype=torch.int32, device=device),
+        weight=torch.as_tensor(np.asarray(weight)[order], dtype=torch.float32, device=device),
+        post=torch.as_tensor(post, device=device),
     )
 
 

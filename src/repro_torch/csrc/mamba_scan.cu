@@ -1,5 +1,6 @@
 // K7 `mamba_chunk_scan`: the selective state-space (S6) scan of every chunk
-// of a sequence from its own initial state.
+// of a sequence from its own initial state; its states-only launch; and the
+// chunk combine between the two.
 //
 // Replaces src/repro/kernels/mamba_scan.py::mamba_chunk_scan (Pallas body
 // `_scan_kernel`).  Per chunk, per channel d and state n, for each step t:
@@ -7,28 +8,53 @@
 //   y[t,d] = sum_n h[d,n] * C[t,n]
 // x, dt (Bt, L, D) and B, C (Bt, L, N) in one type T (float or bf16);
 // a (D, N), h0 and h_out (Bt, n_chunks, D, N) float32; y (Bt, L, D) in T.
-// ops.mamba_scan runs it twice around the chunk combine.
+// ops.mamba_scan runs the states-only launch from zero states, the combine,
+// then the full launch from the combined states.
 //
 // Design.  The TPU kernel keeps a (128, N) channel block in VMEM and walks
 // the chunk with a fori_loop.  Here the grid is (D/BD, n_chunks, Bt) and
 // each thread owns one channel d: its N states and its row of a live in
 // registers (N a template parameter), the chunk's B_t and C_t (chunk x N)
-// are staged once in shared memory, and x_t and dt_t are read coalesced
-// along d.  Every product and add rounds to nearest in the order of
-// ref.mamba_chunk_scan_ref (y sums over n in increasing order), and the
-// decay is the full-precision expf, not __expf.  Steps past L (a ragged
-// last chunk) and channels past D are masked here; no caller pads.
-// Bound: at jamba's 32k-token call (bf16, D = 8192, N = 16) the bytes of
-// x, dt, y and the two state tensors, 1.9 GB, take 0.56 ms at 3.35 TB/s;
-// its 4.3e9 expf (one MUFU.EX2 each, 16 a clock per SM) take about 1 ms,
-// so the special-function units, not memory, bound a faithful kernel.
+// are staged once in shared memory, and x_t and dt_t
+// are read coalesced along d.  Steps past L (a ragged last chunk) and
+// channels past D are masked here; no caller pads.
+// - The full launch rounds every product and add to nearest in the order
+//   of ref.mamba_chunk_scan_ref (y sums over n in increasing order) with
+//   the full-precision expf, so it equals its plain version bit for bit.
+//   That expf is about ten FP32 instructions beside its MUFU.EX2, so this
+//   launch is bound by the FP32 pipes' issue, about 16 instructions a
+//   (t, d, n) term: about 2.3 ms at jamba's 32k-token call (bf16, D = 8192,
+//   N = 16), where the bytes of x, dt, y and the states take 0.56 ms.
+// - The states-only launch (y == NULL: no C, no y, no h.C sum; h0 == NULL:
+//   zero states) may decay by exp2(dt * a*log2(e)) through ex2.approx.ftz:
+//   one MUFU.EX2 and a multiply, the state updated by one FMA.  A term is
+//   then 3 FP32 instructions and one MUFU.EX2 (16 a clock per SM), so the
+//   special-function units set the pace (about 1.2 ms at that call).  The
+//   first POLY_STATES of every 16 states may take a degree-6 polynomial
+//   exp2 on the FMA pipe instead; measured, any share of them made the
+//   launch slower (tools/scan_bmm_ab.py, variants polyK), so none does.  With
+//   fast_exp the full launch computes its states the same way, bit for bit
+//   (ops keeps the exact expf there: a bf16 y rounded from states an ulp
+//   away can flip).
+//
+// The combine: H(0) = 0, H(c) = exp(a * sum of chunk c-1's dt) * H(c-1) +
+// S(c-1), with S the states-only launch's output.  A block owns CD channels
+// of one batch row and walks the chunks in order: its threads first sum
+// each chunk's dt in increasing t into shared memory (CG chunks at a time,
+// coalesced along d), then a thread per (d, n) carries H through the
+// chunks with the full-precision expf.  Bound: the bytes of S and H, 0.27
+// GB at jamba's 32k call, 0.08 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BD = 128;  // channels per block, one per thread
+constexpr int BD = 128;           // channels per scan block, one per thread
+constexpr int POLY_STATES = 0;    // of every 16 states, those whose fast exp2 is a polynomial
+constexpr int CD = 32;            // channels per combine block
+constexpr int CG = 64;            // chunks whose dt sums a combine block stages at a time
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -38,7 +64,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-template <int N, typename T>
+__device__ __forceinline__ float ex2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^x on the FMA pipe: x = k + f with k = round(x), f in [-1/2, 1/2]; a
+// degree-6 fit of 2^f (at most 1.4 ulp) scaled by 2^k in the exponent
+// bits.  x is clamped to [-125, 127]: below, the true value is under
+// 2^-125 and this gives 2^-125 * 2^f, as harmless beside a state as the
+// 0 that ex2.approx.ftz gives there.
+__device__ __forceinline__ float ex2_poly(float x) {
+  constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23: adding it rounds to an integer
+  x = fminf(fmaxf(x, -125.0f), 127.0f);
+  const float t = __fadd_rn(x, MAGIC);
+  const float f = __fsub_rn(x, __fsub_rn(t, MAGIC));
+  float p = 1.5345806605182588e-4f;
+  p = __fmaf_rn(p, f, 1.3399932067841291e-3f);
+  p = __fmaf_rn(p, f, 9.618489071726799e-3f);
+  p = __fmaf_rn(p, f, 5.550328642129898e-2f);
+  p = __fmaf_rn(p, f, 2.4022646248340607e-1f);
+  p = __fmaf_rn(p, f, 6.931471824645996e-1f);
+  p = __fmaf_rn(p, f, 1.0f);
+  const int k = __float_as_int(t) - __float_as_int(MAGIC);
+  return __int_as_float(__float_as_int(p) + (int)((unsigned)k << 23));
+}
+
+template <int N, typename T, bool WRITE_Y, bool FAST>
 __global__ void __launch_bounds__(BD)
 mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                         const float* __restrict__ a, const T* __restrict__ bm,
@@ -47,7 +100,7 @@ mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                         int D, int chunk, int n_chunks) {
   extern __shared__ float smem[];
   float* bs = smem;              // (chunk, N)
-  float* cs = smem + chunk * N;  // (chunk, N)
+  float* cs = smem + chunk * N;  // (chunk, N), WRITE_Y only
   const int d = blockIdx.x * BD + threadIdx.x;
   const int ci = blockIdx.y;
   const int64_t bi = blockIdx.z;
@@ -56,7 +109,7 @@ mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int64_t row0 = bi * L + t0;  // first (b, t) of the chunk
   for (int i = threadIdx.x; i < steps * N; i += BD) {
     bs[i] = to_f(bm[row0 * N + i]);
-    cs[i] = to_f(cm[row0 * N + i]);
+    if (WRITE_Y) cs[i] = to_f(cm[row0 * N + i]);
   }
   __syncthreads();
   if (d >= D) return;
@@ -65,8 +118,8 @@ mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int64_t hoff = ((bi * n_chunks + ci) * (int64_t)D + d) * N;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    av[n] = a[(int64_t)d * N + n];
-    h[n] = h0[hoff + n];
+    av[n] = FAST ? __fmul_rn(a[(int64_t)d * N + n], LOG2E) : a[(int64_t)d * N + n];
+    h[n] = h0 != nullptr ? h0[hoff + n] : 0.0f;
   }
   const T* xp = x + row0 * D + d;
   const T* dtp = dt + row0 * D + d;
@@ -76,45 +129,139 @@ mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     const float dtx = __fmul_rn(dtt, to_f(xp[(int64_t)t * D]));
     const float* bt = bs + t * N;
     const float* ct = cs + t * N;
+    float bv[N];
+    if (FAST) {  // measured: the fast launch runs faster on float4 loads, the exact one not
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(bt)[q];
+        bv[4 * q] = v.x, bv[4 * q + 1] = v.y, bv[4 * q + 2] = v.z, bv[4 * q + 3] = v.w;
+      }
+      bt = bv;
+    }
     float yt = 0.0f;
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      const float decay = expf(__fmul_rn(dtt, av[n]));
-      h[n] = __fadd_rn(__fmul_rn(decay, h[n]), __fmul_rn(dtx, bt[n]));
-      const float p = __fmul_rn(h[n], ct[n]);
-      yt = n == 0 ? p : __fadd_rn(yt, p);
+      if (FAST) {
+        const float arg = __fmul_rn(dtt, av[n]);
+        const float decay = n < POLY_STATES * N / 16 ? ex2_poly(arg) : ex2_mufu(arg);
+        h[n] = __fmaf_rn(decay, h[n], __fmul_rn(dtx, bt[n]));
+      } else {
+        const float decay = expf(__fmul_rn(dtt, av[n]));
+        h[n] = __fadd_rn(__fmul_rn(decay, h[n]), __fmul_rn(dtx, bt[n]));
+      }
+      if (WRITE_Y) {
+        const float p = __fmul_rn(h[n], ct[n]);
+        yt = n == 0 ? p : __fadd_rn(yt, p);
+      }
     }
-    yp[(int64_t)t * D] = from_f<T>(yt);
+    if (WRITE_Y) yp[(int64_t)t * D] = from_f<T>(yt);
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) hout[hoff + n] = h[n];
 }
 
 template <int N, typename T>
+__global__ void __launch_bounds__(CD * N)
+mamba_chunk_combine_kernel(const T* __restrict__ dt, const float* __restrict__ a,
+                           const float* __restrict__ s_local, float* __restrict__ h_init,
+                           int L, int D, int chunk, int n_chunks) {
+  __shared__ float dsum[CG][CD];
+  const int64_t bi = blockIdx.y;
+  const int d0 = blockIdx.x * CD;
+  // carrying H: channel d0 + dl, state n
+  const int dl = threadIdx.x / N, n = threadIdx.x % N;
+  const int d = d0 + dl;
+  const bool live = d < D;
+  const float an = live ? a[(int64_t)d * N + n] : 0.0f;
+  // summing dt: channel d0 + sl, chunks sr, sr + N, ... of each group
+  const int sl = threadIdx.x % CD, sr = threadIdx.x / CD;
+  float h = 0.0f;  // H(c)
+  for (int c0 = 0; c0 < n_chunks - 1; c0 += CG) {
+    const int cn = min(CG, n_chunks - 1 - c0);
+    __syncthreads();  // the previous group's sums are read
+    for (int cc = sr; cc < cn; cc += N) {
+      float s = 0.0f;
+      if (d0 + sl < D) {
+        const T* p = dt + (bi * L + (int64_t)(c0 + cc) * chunk) * D + d0 + sl;
+#pragma unroll 8
+        for (int t = 0; t < chunk; ++t) s = __fadd_rn(s, to_f(p[(int64_t)t * D]));
+      }
+      dsum[cc][sl] = s;
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 4
+      for (int cc = 0; cc < cn; ++cc) {
+        const int64_t off = ((bi * n_chunks + c0 + cc) * (int64_t)D + d) * N + n;
+        h_init[off] = h;
+        const float decay = expf(__fmul_rn(dsum[cc][dl], an));
+        h = __fadd_rn(__fmul_rn(decay, h), s_local[off]);
+      }
+    }
+  }
+  if (live) h_init[((bi * n_chunks + n_chunks - 1) * (int64_t)D + d) * N + n] = h;
+}
+
+template <int N, typename T, bool WRITE_Y, bool FAST>
 int launch(const void* x, const void* dt, const float* a, const void* bm,
            const void* cm, const float* h0, void* y, float* hout, int Bt, int L,
            int D, int chunk, cudaStream_t stream) {
   const int n_chunks = (L + chunk - 1) / chunk;
   if (n_chunks > 65535 || Bt > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)chunk * N * sizeof(float);
+  const size_t smem = (WRITE_Y ? 2 : 1) * (size_t)chunk * N * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const dim3 blocks((D + BD - 1) / BD, n_chunks, Bt);
-  mamba_chunk_scan_kernel<N, T><<<blocks, BD, smem, stream>>>(
+  mamba_chunk_scan_kernel<N, T, WRITE_Y, FAST><<<blocks, BD, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), a,
       static_cast<const T*>(bm), static_cast<const T*>(cm), h0,
       static_cast<T*>(y), hout, L, D, chunk, n_chunks);
   return (int)cudaGetLastError();
 }
 
+template <int N, typename T>
+int dispatch_mode(const void* x, const void* dt, const float* a, const void* bm,
+                  const void* cm, const float* h0, void* y, float* hout, int fast_exp,
+                  int Bt, int L, int D, int chunk, cudaStream_t stream) {
+  if (y == nullptr)
+    return fast_exp ? launch<N, T, false, true>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream)
+                    : launch<N, T, false, false>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
+  return fast_exp ? launch<N, T, true, true>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream)
+                  : launch<N, T, true, false>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
+}
+
 template <typename T>
 int dispatch_n(const void* x, const void* dt, const float* a, const void* bm,
-               const void* cm, const float* h0, void* y, float* hout, int Bt,
-               int L, int D, int N, int chunk, cudaStream_t stream) {
+               const void* cm, const float* h0, void* y, float* hout, int fast_exp,
+               int Bt, int L, int D, int N, int chunk, cudaStream_t stream) {
   switch (N) {
     case 8:
-      return launch<8, T>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
+      return dispatch_mode<8, T>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, chunk, stream);
     case 16:
-      return launch<16, T>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
+      return dispatch_mode<16, T>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, chunk, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int N, typename T>
+int launch_combine(const void* dt, const float* a, const float* s_local, float* h_init,
+                   int Bt, int L, int D, int chunk, cudaStream_t stream) {
+  const int n_chunks = (L + chunk - 1) / chunk;
+  if (Bt > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((D + CD - 1) / CD, Bt);
+  mamba_chunk_combine_kernel<N, T><<<blocks, CD * N, 0, stream>>>(
+      static_cast<const T*>(dt), a, s_local, h_init, L, D, chunk, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int combine_n(const void* dt, const float* a, const float* s_local, float* h_init, int Bt,
+              int L, int D, int N, int chunk, cudaStream_t stream) {
+  switch (N) {
+    case 8:
+      return launch_combine<8, T>(dt, a, s_local, h_init, Bt, L, D, chunk, stream);
+    case 16:
+      return launch_combine<16, T>(dt, a, s_local, h_init, Bt, L, D, chunk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -122,14 +269,25 @@ int dispatch_n(const void* x, const void* dt, const float* a, const void* bm,
 
 }  // namespace
 
-// Plain C entry for ctypes; returns the cudaError_t of the launch.
+// Plain C entries for ctypes; each returns the cudaError_t of its launch.
+// y NULL: states only (cm unused); h0 NULL: every chunk starts from zero.
 extern "C" int mamba_chunk_scan(const void* x, const void* dt, const float* a,
                                 const void* bm, const void* cm, const float* h0,
-                                void* y, float* hout, int is_bf16, int Bt, int L,
-                                int D, int N, int chunk, cudaStream_t stream) {
+                                void* y, float* hout, int is_bf16, int fast_exp, int Bt,
+                                int L, int D, int N, int chunk, cudaStream_t stream) {
+  if (L <= 0 || D <= 0 || Bt <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (y != nullptr && cm == nullptr) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return dispatch_n<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, N,
+                                     chunk, stream);
+  return dispatch_n<float>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, N, chunk, stream);
+}
+
+extern "C" int mamba_chunk_combine(const void* dt, const float* a, const float* s_local,
+                                   float* h_init, int is_bf16, int Bt, int L, int D, int N,
+                                   int chunk, cudaStream_t stream) {
   if (L <= 0 || D <= 0 || Bt <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return dispatch_n<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, N,
-                                     chunk, stream);
-  return dispatch_n<float>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, N, chunk, stream);
+    return combine_n<__nv_bfloat16>(dt, a, s_local, h_init, Bt, L, D, N, chunk, stream);
+  return combine_n<float>(dt, a, s_local, h_init, Bt, L, D, N, chunk, stream);
 }

@@ -9,10 +9,12 @@ Each wrapper adds one to :data:`LAUNCHES` where it launches its kernel.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from . import _build, ref
-from .ref import RelaxCSR
+from .ref import RelaxCSR, SynapseCSR
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {
@@ -24,10 +26,13 @@ LAUNCHES = {
     "flash_attention": 0,
     "lif_crossbar_step": 0,
     "mamba_chunk_scan": 0,
+    "mamba_chunk_states": 0,
+    "mamba_chunk_combine": 0,
+    "spike_input": 0,
 }
 
 #: device operations the chunk combine of :func:`mamba_scan` issued on a
-#: CUDA tensor since the last :func:`reset_launches` (plain PyTorch, not a kernel)
+#: CUDA tensor since the last :func:`reset_launches`: one combine kernel a scan
 COMBINE_LAUNCHES = {"mamba_scan": 0}
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
@@ -73,6 +78,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@contextlib.contextmanager
+def _launch_on(t: torch.Tensor):
+    """Make ``t``'s device the current one for a launch (a kernel launches
+    on the current device, and K5 sizes its grid from it); yields the
+    stream to launch on."""
+    with torch.cuda.device(t.device):
+        yield _stream(t)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with cudaError_t {err}")
@@ -104,12 +118,13 @@ def _relax_launch(dist, lams, csr: RelaxCSR, witness: bool):
     if n == 0:
         return best, psrc
     fn = _build.library("relax_round").relax_round
-    err = fn(
-        dist.data_ptr(), lams.data_ptr(), csr.indptr.data_ptr(),
-        csr.src.data_ptr(), csr.w.data_ptr(), csr.t.data_ptr(),
-        best.data_ptr(), psrc.data_ptr() if witness else None,
-        n, csr.n_actors, k, int(witness), _stream(dist),
-    )
+    with _launch_on(dist) as stream:
+        err = fn(
+            dist.data_ptr(), lams.data_ptr(), csr.indptr.data_ptr(),
+            csr.src.data_ptr(), csr.w.data_ptr(), csr.t.data_ptr(),
+            best.data_ptr(), psrc.data_ptr() if witness else None,
+            n, csr.n_actors, k, int(witness), stream,
+        )
     name = "relax_round_witness" if witness else "relax_round"
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -147,9 +162,9 @@ def _bmm_launch(a: torch.Tensor, b: torch.Tensor, name: str) -> torch.Tensor:
     c = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
     if c.numel() == 0:
         return c
-    err = _build.library("maxplus_matmul").maxplus_bmm(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), g, m, n, k, _stream(a)
-    )
+    fn = _build.library("maxplus_matmul").maxplus_bmm
+    with _launch_on(a) as stream:
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), g, m, n, k, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return c
@@ -163,7 +178,8 @@ def maxplus_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def maxplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A (x) B in (max,+), (M,K) x (K,N) float32: the G = 1 launch of K2."""
+    """C = A (x) B in (max,+), (M,K) x (K,N) float32: the G = 1 launch of K2
+    (whose C entry takes N = 1, the matvec, with K3's body)."""
     if _on_cpu(a, b):
         return ref.maxplus_matmul_ref(a, b)
     return _bmm_launch(a[None], b[None], "maxplus_matmul")[0]
@@ -181,9 +197,9 @@ def maxplus_bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((g, m), dtype=torch.float32, device=a.device)
     if y.numel() == 0:
         return y
-    err = _build.library("maxplus_matmul").maxplus_bmv(
-        a.data_ptr(), x.data_ptr(), y.data_ptr(), g, m, k, _stream(a)
-    )
+    fn = _build.library("maxplus_matmul").maxplus_bmv
+    with _launch_on(a) as stream:
+        err = fn(a.data_ptr(), x.data_ptr(), y.data_ptr(), g, m, k, stream)
     _raise_on(err, "maxplus_bmv")
     LAUNCHES["maxplus_bmv"] += 1
     return y
@@ -230,12 +246,14 @@ def flash_attention(
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    err = _build.library("flash_attention").flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hq, k.shape[1], sq, k.shape[2], d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), int(window), _stream(q),
-    )
+    fn = _build.library("flash_attention").flash_attention
+    with _launch_on(q) as stream:
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, hq, k.shape[1], sq, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window), stream,
+        )
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o
@@ -273,19 +291,104 @@ def lif_crossbar_step(
     out_s, out_v = torch.empty_like(v), torch.empty_like(v)
     if out_v.numel() == 0:
         return out_s, out_v
-    err = _build.library("lif_crossbar").lif_crossbar_step(
-        spikes.data_ptr(), weights.data_ptr(), v.data_ptr(), out_s.data_ptr(),
-        out_v.data_ptr(), lead[0] if lead else 1, b, n_in, weights.shape[-1], leak, v_th,
-        v_reset, _stream(v),
-    )
+    fn = _build.library("lif_crossbar").lif_crossbar_step
+    with _launch_on(v) as stream:
+        err = fn(
+            spikes.data_ptr(), weights.data_ptr(), v.data_ptr(), out_s.data_ptr(),
+            out_v.data_ptr(), lead[0] if lead else 1, b, n_in, weights.shape[-1], leak, v_th,
+            v_reset, stream,
+        )
     _raise_on(err, "lif_crossbar_step")
     LAUNCHES["lif_crossbar_step"] += 1
     return out_s, out_v
 
 
 # ======================================================================
+# the spike recording's synaptic input
+# ======================================================================
+def spike_input(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
+    """(n_neurons,) float32 synaptic input ``i[v] = sum of w_e * s[pre_e]``
+    over v's incoming synapses in synapse order (see ``ref.spike_input_ref``),
+    bit for bit the same on every device and in every run."""
+    if _on_cpu(s, csr.pre, csr.weight):
+        return ref.spike_input_ref(s, csr)
+    if s.shape != (csr.n_neurons,):
+        raise ValueError(f"shape mismatch: s {tuple(s.shape)} for {csr.n_neurons} neurons")
+    for t, dt, name in ((s, torch.float32, "s"), (csr.weight, torch.float32, "weight"),
+                        (csr.indptr, torch.int32, "indptr"), (csr.pre, torch.int32, "pre")):
+        _check(t, dt, name)
+    out = torch.empty_like(s)
+    if out.numel() == 0:
+        return out
+    fn = _build.library("spike_input").spike_input
+    with _launch_on(s) as stream:
+        err = fn(csr.indptr.data_ptr(), csr.pre.data_ptr(), csr.weight.data_ptr(),
+                 s.data_ptr(), out.data_ptr(), csr.n_neurons, stream)
+    _raise_on(err, "spike_input")
+    LAUNCHES["spike_input"] += 1
+    return out
+
+
+# ======================================================================
 # K7: chunked selective scan
 # ======================================================================
+#: the states-only pass decays by ``ex2.approx`` (one MUFU.EX2 and a multiply)
+#: where the chunk scan keeps the full-precision ``expf``: its chunk-end
+#: states stay within half of the state's ``SCAN_TOL`` (PERF.md), while a bf16
+#: y rounded from them could not (a flipped rounding reads up to 1)
+STATES_FAST_EXP = True
+
+
+def _scan_on_cpu(x, dt, a, b, c, h0, chunk) -> bool:
+    """Whether the chunk scan's operands lie on the CPU, after checking their
+    shapes (on every device) and what the kernel takes (on CUDA); ``c`` and
+    ``h0`` may be None."""
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    nc = -(-length // chunk)
+    if (dt.shape != x.shape or a.shape != (d, n) or b.shape != (bsz, length, n)
+            or (c is not None and c.shape != b.shape)
+            or (h0 is not None and h0.shape != (bsz, nc, d, n))):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+            f"b {tuple(b.shape)}, c {None if c is None else tuple(c.shape)}, "
+            f"h0 {None if h0 is None else tuple(h0.shape)} at chunk {chunk}"
+        )
+    if _on_cpu(*(t for t in (x, dt, a, b, c, h0) if t is not None)):
+        return True
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mamba_chunk_scan takes float32 or bfloat16 x, got {x.dtype}")
+    for t, name in ((x, "x"), (dt, "dt"), (b, "b"), (c, "c")):
+        if t is not None:
+            _check(t, x.dtype, name)
+    _check(a, torch.float32, "a")
+    if h0 is not None:
+        _check(h0, torch.float32, "h0")
+    if n not in SCAN_STATES:
+        raise ValueError(f"mamba_chunk_scan takes state sizes {SCAN_STATES}, got {n}")
+    if chunk < 1 or 2 * chunk * n * 4 > SCAN_SMEM_BYTES:
+        raise ValueError(f"mamba_chunk_scan takes 1 <= chunk <= "
+                         f"{SCAN_SMEM_BYTES // (8 * n)} at N = {n}, got {chunk}")
+    return False
+
+
+def _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, fast_exp, name):
+    """One K7 launch; ``y`` None scans states only (``c`` unused), ``h0``
+    None starts every chunk from zero."""
+    bsz, length, d = x.shape
+    fn = _build.library("mamba_scan").mamba_chunk_scan
+    with _launch_on(x) as stream:
+        err = fn(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            None if c is None else c.data_ptr(), None if h0 is None else h0.data_ptr(),
+            None if y is None else y.data_ptr(), h_out.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(fast_exp), bsz, length, d, a.shape[1], chunk,
+            stream,
+        )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+
+
 def mamba_chunk_scan(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     c: torch.Tensor, h0: torch.Tensor, *, chunk: int = 128,
@@ -294,40 +397,64 @@ def mamba_chunk_scan(
     (B, L, N) b, c from the chunks' initial states h0 (B, ceil(L/chunk),
     D, N) -> ``(y, h_final)`` (see ``ref.mamba_chunk_scan_ref``).  L need not
     be a multiple of ``chunk``; nothing is padded."""
-    bsz, length, d = x.shape
-    n = a.shape[1]
-    nc = -(-length // chunk)
-    if (dt.shape != x.shape or a.shape != (d, n) or b.shape != (bsz, length, n)
-            or c.shape != b.shape or h0.shape != (bsz, nc, d, n)):
-        raise ValueError(
-            f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
-            f"b {tuple(b.shape)}, c {tuple(c.shape)}, h0 {tuple(h0.shape)} at chunk {chunk}"
-        )
-    if _on_cpu(x, dt, a, b, c, h0):
+    if _scan_on_cpu(x, dt, a, b, c, h0, chunk):
         return ref.mamba_chunk_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mamba_chunk_scan takes float32 or bfloat16 x, got {x.dtype}")
-    for t, name in ((x, "x"), (dt, "dt"), (b, "b"), (c, "c")):
-        _check(t, x.dtype, name)
-    _check(a, torch.float32, "a")
-    _check(h0, torch.float32, "h0")
-    if n not in SCAN_STATES:
-        raise ValueError(f"mamba_chunk_scan takes state sizes {SCAN_STATES}, got {n}")
-    if chunk < 1 or 2 * chunk * n * 4 > SCAN_SMEM_BYTES:
-        raise ValueError(f"mamba_chunk_scan takes 1 <= chunk <= "
-                         f"{SCAN_SMEM_BYTES // (8 * n)} at N = {n}, got {chunk}")
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
-    if y.numel() == 0:
-        return y, h_out
-    err = _build.library("mamba_scan").mamba_chunk_scan(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), int(x.dtype == torch.bfloat16),
-        bsz, length, d, n, chunk, _stream(x),
-    )
-    _raise_on(err, "mamba_chunk_scan")
-    LAUNCHES["mamba_chunk_scan"] += 1
+    if y.numel():
+        _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, False, "mamba_chunk_scan")
     return y, h_out
+
+
+def mamba_chunk_states(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, chunk: int = 128,
+) -> torch.Tensor:
+    """Every chunk's end state (B, ceil(L/chunk), D, N) float32, each chunk
+    scanned from zero: the states of :func:`mamba_chunk_scan` from zero
+    states, without y (K7's states-only launch, decaying by
+    :data:`STATES_FAST_EXP`'s exponential on the card)."""
+    bsz, length, d = x.shape
+    nc = -(-length // chunk)
+    if _scan_on_cpu(x, dt, a, b, None, None, chunk):
+        zeros = torch.zeros((bsz, nc, d, a.shape[1]), dtype=torch.float32, device=x.device)
+        return ref.mamba_chunk_scan_ref(x, dt, a, b, b, zeros, chunk=chunk)[1]
+    h_out = torch.empty((bsz, nc, d, a.shape[1]), dtype=torch.float32, device=x.device)
+    if h_out.numel():
+        _scan_launch(x, dt, a, b, None, None, None, h_out, chunk, STATES_FAST_EXP,
+                     "mamba_chunk_states")
+    return h_out
+
+
+def mamba_chunk_combine(
+    dt: torch.Tensor, a: torch.Tensor, s_local: torch.Tensor, *, chunk: int = 128,
+) -> torch.Tensor:
+    """Each chunk's initial state (B, nc, D, N) float32 from the chunks'
+    end states scanned from zero (see ``ref.mamba_combine_ref``), in one
+    launch on the card."""
+    bsz, length, d = dt.shape
+    n = a.shape[1]
+    nc = -(-length // chunk)
+    if s_local.shape != (bsz, nc, d, n) or a.shape != (d, n):
+        raise ValueError(f"shape mismatch: dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+                         f"s_local {tuple(s_local.shape)} at chunk {chunk}")
+    if _on_cpu(dt, a, s_local):
+        return ref.mamba_combine_ref(dt, a, s_local, chunk=chunk)
+    if dt.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mamba_chunk_combine takes float32 or bfloat16 dt, got {dt.dtype}")
+    _check(dt, dt.dtype, "dt")
+    _check(a, torch.float32, "a")
+    _check(s_local, torch.float32, "s_local")
+    h_init = torch.empty_like(s_local)
+    if h_init.numel() == 0:
+        return h_init
+    fn = _build.library("mamba_scan").mamba_chunk_combine
+    with _launch_on(dt) as stream:
+        err = fn(dt.data_ptr(), a.data_ptr(), s_local.data_ptr(), h_init.data_ptr(),
+                 int(dt.dtype == torch.bfloat16), bsz, length, d, n, chunk, stream)
+    _raise_on(err, "mamba_chunk_combine")
+    LAUNCHES["mamba_chunk_combine"] += 1
+    COMBINE_LAUNCHES["mamba_scan"] += 1
+    return h_init
 
 
 def mamba_scan(
@@ -335,23 +462,17 @@ def mamba_scan(
     c: torch.Tensor, *, chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence S6 scan from a zero state, ``(y (B, L, D),
-    h_final (B, D, N))``, in the reference's three steps: the chunk scan
-    from zero states, the chunk combine
-    ``H_init(c) = Decay(c-1) * H_init(c-1) + S_local(c-1)`` (plain PyTorch,
-    a loop over the chunks), and the chunk scan again from ``H_init``."""
+    h_final (B, D, N))``, in the reference's three steps: each chunk's end
+    state from zero (:func:`mamba_chunk_states`), the chunk combine
+    ``H_init(c) = Decay(c-1) * H_init(c-1) + S_local(c-1)``
+    (:func:`mamba_chunk_combine`), and the chunk scan from ``H_init``.  A
+    sequence of one chunk starts from zero and needs neither of the first
+    two."""
     bsz, length, d = x.shape
-    n = a.shape[1]
-    nc = -(-length // chunk)
-    zeros = torch.zeros((bsz, nc, d, n), dtype=torch.float32, device=x.device)
-    _, s_local = mamba_chunk_scan(x, dt, a, b, c, zeros, chunk=chunk)
-    # the decay over each complete chunk before the last: exp(a * sum of dt)
-    full = (nc - 1) * chunk
-    dt_sum = dt[:, :full].reshape(bsz, nc - 1, chunk, d).sum(dim=2, dtype=torch.float32)
-    decay = torch.exp(dt_sum[..., None] * a.float())
-    h_init = torch.zeros_like(zeros)
-    for ci in range(1, nc):
-        torch.addcmul(s_local[:, ci - 1], decay[:, ci - 1], h_init[:, ci - 1], out=h_init[:, ci])
-    if x.is_cuda:
-        COMBINE_LAUNCHES["mamba_scan"] += 4 + (nc - 1)   # zeros, sum, mul, exp; a step each
+    if length <= chunk:
+        h_init = torch.zeros((bsz, 1, d, a.shape[1]), dtype=torch.float32, device=x.device)
+    else:
+        s_local = mamba_chunk_states(x, dt, a, b, chunk=chunk)
+        h_init = mamba_chunk_combine(dt, a, s_local, chunk=chunk)
     y, h_fin = mamba_chunk_scan(x, dt, a, b, c, h_init, chunk=chunk)
     return y, h_fin[:, -1]

@@ -4,9 +4,11 @@ Each function computes exactly what its kernel in ``csrc/`` computes.  The
 (max,+) products round one add per term and the relaxation rounds
 ``w - lam*t`` and the add separately, while max is exact; the LIF crossbar
 step adds its products in increasing k; so on the same inputs kernel and
-plain version agree bit for bit.  Attention sums in another order than its
-kernel, and the chunk scan's ``exp`` may differ from the kernel's ``expf``
-by an ulp, so those two agree within a stated tolerance.
+plain version agree bit for bit; so does the synaptic sum, which adds each
+node's synapses in synapse order.  Attention sums in another order than
+its kernel, and the chunk scan's ``exp`` may differ from the kernel's
+``expf`` by an ulp (the states-only pass and the chunk combine compute
+theirs otherwise too), so those agree within a stated tolerance.
 :mod:`repro_torch.kernels.ops` routes CPU tensors here; ``chip_smoke.py``
 holds every kernel against these on the card.
 """
@@ -221,6 +223,39 @@ def lif_crossbar_step_ref(
 
 
 # ----------------------------------------------------------------------
+# the synaptic input of the spike recording
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SynapseCSR:
+    """An SNN's synapses sorted by their postsynaptic neuron, on one device.
+
+    The sort is stable, so each neuron's incoming synapses keep their order
+    in the synapse list; ``indptr[v]:indptr[v+1]`` are neuron v's.  ``post``
+    repeats what ``indptr`` implies, per synapse, for the plain version's
+    ``index_add_``.
+    """
+
+    indptr: torch.Tensor   # (n_neurons + 1,) int32
+    pre: torch.Tensor      # (E,) int32 presynaptic neuron of each synapse
+    weight: torch.Tensor   # (E,) float32
+    post: torch.Tensor     # (E,) int64, non-decreasing
+
+    @property
+    def n_neurons(self) -> int:
+        return int(self.indptr.shape[0]) - 1
+
+
+def spike_input_ref(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
+    """(n_neurons,) ``i[v] = sum of weight_e * s[pre_e]`` over v's incoming
+    synapses: one rounded product each, added to 0 in synapse order (the
+    CPU's ``index_add_`` adds in index order, and the stable sort kept each
+    neuron's synapses in the order of the unsorted list, so this is also
+    the sum over the unsorted list)."""
+    out = torch.zeros(csr.n_neurons, dtype=s.dtype, device=s.device)
+    return out.index_add_(0, csr.post, csr.weight * s[csr.pre.long()])
+
+
+# ----------------------------------------------------------------------
 # chunked selective (S6) scan
 # ----------------------------------------------------------------------
 def mamba_chunk_scan_ref(
@@ -263,6 +298,27 @@ def mamba_chunk_scan_ref(
     return y.to(x.dtype), h
 
 
+def mamba_combine_ref(
+    dt: torch.Tensor, a: torch.Tensor, s_local: torch.Tensor, *, chunk: int = 128,
+) -> torch.Tensor:
+    """Each chunk's initial state from the chunks' local end states
+    ``s_local`` (B, nc, D, N) float32 (each chunk scanned from zero):
+    ``H(0) = 0``, ``H(c) = exp(a * sum of chunk c-1's dt) * H(c-1) +
+    s_local(c-1)`` in float32, one ``torch.addcmul`` a chunk: the
+    combine of ``repro.kernels.ops.mamba_scan`` (its ``lax.scan``).  dt (B, L, D),
+    a (D, N) float32; L need not be a multiple of ``chunk`` (only the
+    complete chunks before the last are summed)."""
+    bsz, length, d = dt.shape
+    nc = s_local.shape[1]
+    full = (nc - 1) * chunk
+    dt_sum = dt[:, :full].reshape(bsz, nc - 1, chunk, d).sum(dim=2, dtype=torch.float32)
+    decay = torch.exp(dt_sum[..., None] * a.float())
+    h_init = torch.zeros_like(s_local)
+    for ci in range(1, nc):
+        torch.addcmul(s_local[:, ci - 1], decay[:, ci - 1], h_init[:, ci - 1], out=h_init[:, ci])
+    return h_init
+
+
 def mamba_scan_ref(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     c: torch.Tensor, h0: torch.Tensor | None = None,
@@ -290,7 +346,9 @@ def mamba_scan_ref(
 #: by an ulp, and a float32 difference that small can flip the rounding to
 #: bf16) plus ``row_tol`` of the root mean square of its (b, chunk,
 #: channel) row (an ulp of a decay carried through the chunk's 128 steps
-#: moves the state by about 128 * 2^-24 of its size, about 2^-17).
+#: moves the state by about 128 * 2^-24 of its size, about 2^-17).  The
+#: float32 limits also hold the states (:func:`state_excess`), and with
+#: them the states-only pass's exp2 and the combine's summed dt.
 SCAN_TOL = {torch.float32: (2.0**-20, 2.0**-14), torch.bfloat16: (2.0**-7, 2.0**-14)}
 
 
@@ -310,5 +368,17 @@ def scan_excess(out: torch.Tensor, plain: torch.Tensor, chunk: int) -> float:
     rms = rms.repeat_interleave(chunk, dim=1)[:, :length]
     diff = (out.float() - ref_f).abs()
     limit = rtol * ref_f.abs() + row_tol * rms
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def state_excess(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """The largest ``|out - plain| / (rtol |plain| + row_tol rms(row))`` over
+    the elements of float32 scan states (..., N), rows being the N states
+    of one channel, with :data:`SCAN_TOL`'s float32 limits; at most 1 means
+    ``out`` agrees with ``plain``."""
+    rtol, row_tol = SCAN_TOL[torch.float32]
+    diff = (out - plain).abs()
+    limit = rtol * plain.abs() + row_tol * plain.square().mean(dim=-1, keepdim=True).sqrt()
     ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
     return float(ratio.max()) if ratio.numel() else 0.0

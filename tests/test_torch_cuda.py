@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import engine as tengine
+from repro_torch.core import lif as tlif
 from repro_torch.core import maxplus as tmp
 from repro_torch.core.apps import small_app
 from repro_torch.core.hardware import DYNAP_SE_16
@@ -57,7 +58,11 @@ def _kernel_calls(dist, lams, csr, a):
         lambda: ops.flash_attention(qkv, qkv, qkv),
         lambda: ops.lif_crossbar_step(a[0], a[0], a[0]),
         lambda: ops.mamba_chunk_scan(*scan, chunk=16),
+        lambda: ops.mamba_chunk_states(*scan[:4], chunk=16),
+        lambda: ops.mamba_chunk_combine(scan[1], scan[2], scan[5], chunk=16),
         lambda: ops.mamba_scan(*scan[:5], chunk=16),
+        lambda: ops.spike_input(a[0, 0], tlif.synapse_csr(
+            np.array([0, 1]), np.array([1, 2]), np.ones(2), 4, a.device)),
     )
 
 
@@ -128,12 +133,135 @@ class _FakeFlashLib:
         return self.err
 
 
+class _DeviceGuard:
+    """Stands in for ``torch.cuda.device``: records the device each guard
+    was entered with, and whether one is open."""
+
+    def __init__(self):
+        self.entered, self.open = [], 0
+
+    def __call__(self, device):
+        guard = self
+
+        class _Ctx:
+            def __enter__(self):
+                guard.entered.append(device)
+                guard.open += 1
+
+            def __exit__(self, *exc):
+                guard.open -= 1
+                return False
+
+        return _Ctx()
+
+
 def _fake_flash(monkeypatch, err=0):
     lib = _FakeFlashLib(err)
     monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", _DeviceGuard())
     monkeypatch.setattr(_build, "library", lambda stem: lib)
     return lib
+
+
+class _FakeLib:
+    """Stands in for every built library: each C entry records its name, its
+    arguments and the devices of the guards open when it was called."""
+
+    def __init__(self, guard):
+        self.calls, self.guard = [], guard
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args, list(self.guard.entered) if self.guard.open else None))
+            return 0
+        return call
+
+
+def _fake_lib(monkeypatch):
+    guard = _DeviceGuard()
+    lib = _FakeLib(guard)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(_build, "library", lambda stem: lib)
+    return lib
+
+
+def _wrapper_calls():
+    """(wrapper, its call on small CPU operands) for every wrapper that
+    launches a kernel, the operand each launch must run beside first."""
+    csr, dist, lams, *_ = dyadic_csr(0, 2, 8, 8, 3)
+    a = torch.zeros((2, 8, 8))
+    qkv = torch.zeros((1, 2, 8, 64))
+    scan = _scan_args(1, 40, 16, 8, torch.float32, "cpu", chunk=16)
+    syn = tref.SynapseCSR(indptr=torch.tensor([0, 1, 2], dtype=torch.int32),
+                          pre=torch.tensor([1, 0], dtype=torch.int32),
+                          weight=torch.ones(2), post=torch.tensor([0, 1]))
+    return {
+        "relax_round": (dist, lambda: ops.relax_round(dist, lams, csr)),
+        "relax_round_witness": (dist, lambda: ops.relax_round_witness(dist, lams, csr)),
+        "maxplus_bmm": (a, lambda: ops.maxplus_bmm(a, a)),
+        "maxplus_bmv": (a, lambda: ops.maxplus_bmv(a, a[:, 0].contiguous())),
+        "maxplus_matmul": (a, lambda: ops.maxplus_matmul(a[0], a[0])),
+        "flash_attention": (qkv, lambda: ops.flash_attention(qkv, qkv, qkv)),
+        "lif_crossbar_step": (a, lambda: ops.lif_crossbar_step(a[0], a[0], a[0])),
+        "mamba_chunk_scan": (scan[0], lambda: ops.mamba_chunk_scan(*scan, chunk=16)),
+        "mamba_chunk_states": (scan[0], lambda: ops.mamba_chunk_states(*scan[:4], chunk=16)),
+        "mamba_chunk_combine": (scan[1], lambda: ops.mamba_chunk_combine(
+            scan[1], scan[2], scan[5], chunk=16)),
+        "spike_input": (syn.weight, lambda: ops.spike_input(torch.ones(2), syn)),
+    }
+
+
+def test_every_launch_runs_under_its_operands_device(monkeypatch):
+    """Each wrapper calls its C entry inside ``torch.cuda.device`` of its
+    operands' device (a kernel launches on the current device), entered
+    once per launch and closed after it; each launch is counted once."""
+    lib = _fake_lib(monkeypatch)
+    calls = _wrapper_calls()
+    assert set(calls) == set(ops.LAUNCHES)
+    for name, (operand, call) in calls.items():
+        lib.calls.clear()
+        lib.guard.entered.clear()
+        before = dict(ops.LAUNCHES)
+        call()
+        assert [guards for _, _, guards in lib.calls] == [[operand.device]], name
+        assert lib.guard.open == 0
+        assert {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]} == {name: 1}
+
+
+def test_scan_and_matvec_routes_reach_their_c_entries(monkeypatch):
+    """``mamba_scan`` over more than one chunk: the states-only launch (no
+    y, no c, no h0; fast exp2 as ``STATES_FAST_EXP`` says), one combine
+    launch on its output, then the full launch (exact expf) from the
+    combine's output; over one chunk only the full launch, from zeros.
+    ``maxplus_matmul`` at N = 1 is K2's C entry with G = 1 and N = 1, the
+    matvec route inside it."""
+    lib = _fake_lib(monkeypatch)
+    x, dt, a, b, c, _ = _scan_args(2, 40, 16, 8, torch.bfloat16, "cpu", chunk=16)
+    combine_before = ops.COMBINE_LAUNCHES["mamba_scan"]
+    ops.mamba_scan(x, dt, a, b, c, chunk=16)
+    assert [entry for entry, _, _ in lib.calls] == [
+        "mamba_chunk_scan", "mamba_chunk_combine", "mamba_chunk_scan"]
+    (_, states, _), (_, comb, _), (_, full, _) = lib.calls
+    assert states[:3] == (x.data_ptr(), dt.data_ptr(), a.data_ptr())
+    assert states[4:7] == (None, None, None) and states[7] == comb[2]
+    assert states[8:15] == (1, int(ops.STATES_FAST_EXP), 2, 40, 16, 8, 16)
+    assert comb[:2] == (dt.data_ptr(), a.data_ptr()) and comb[4:10] == (1, 2, 40, 16, 8, 16)
+    assert full[4] == c.data_ptr() and full[5] == comb[3] and full[6] is not None
+    assert full[8:15] == (1, 0, 2, 40, 16, 8, 16)
+    assert ops.COMBINE_LAUNCHES["mamba_scan"] == combine_before + 1
+    lib.calls.clear()
+    ops.mamba_scan(*(t[:, :16].contiguous() for t in (x, dt)), a,
+                   *(t[:, :16].contiguous() for t in (b, c)), chunk=16)
+    (entry, one, _), = lib.calls
+    assert entry == "mamba_chunk_scan" and one[6] is not None and one[9] == 0
+    lib.calls.clear()
+    m = torch.zeros((150, 150))
+    out = ops.maxplus_matmul(m, torch.zeros((150, 1)))
+    (entry, args, _), = lib.calls
+    assert entry == "maxplus_bmm" and args[3:7] == (1, 150, 1, 150) and out.shape == (150, 1)
 
 
 def test_flash_attention_passes_tma_loadable_views_as_they_lie(monkeypatch):
@@ -329,19 +457,33 @@ def test_relax_round_bit_identical_on_skewed_degrees(k, seed):
     assert bool((torch.isneginf(b2) & has_in[:, None] & (p2 >= 0)).any())
 
 
+#: (G, M, K, N): ragged tiles and K tails on the 4-byte and the 16-byte copy
+#: paths, the dense path's (64,192,192)^2 (384 blocks over 132 SMs) and a
+#: stack whose last wave is one block, K4's matvec (N = 1) and K = 0
+MAXPLUS_SHAPES = [(3, 70, 50, 90), (1, 150, 150, 1), (2, 1, 7, 129), (64, 192, 192, 192),
+                  (5, 97, 193, 131), (2, 200, 36, 260), (133, 96, 20, 64), (4, 33, 0, 8),
+                  (3, 70, 51, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 70, 50, 90), (1, 150, 150, 1), (2, 1, 7, 129)])
+@pytest.mark.parametrize("shape", MAXPLUS_SHAPES)
 def test_maxplus_products_bit_identical_on_the_card(shape):
     dev = _need_cuda()
     g, m, k, n = shape
     gen = torch.Generator(device="cpu").manual_seed(sum(shape))
     a = torch.randn(g, m, k, generator=gen)
     a[a > 1.5] = float("-inf")
-    a, b = a.to(dev), torch.randn(g, k, n, generator=gen).to(dev)
-    x = torch.randn(g, k, generator=gen).to(dev)
+    # B and x mostly negative, so most maxima are too: a tile or K tail padded
+    # with anything but -inf would show
+    a, b = a.to(dev), (torch.randn(g, k, n, generator=gen) - 4.0).to(dev)
+    x = (torch.randn(g, k, generator=gen) - 4.0).to(dev)
+    before = dict(ops.LAUNCHES)
     assert torch.equal(ops.maxplus_bmm(a, b), tref.maxplus_bmm_ref(a, b))
     assert torch.equal(ops.maxplus_bmv(a, x), tref.maxplus_bmv_ref(a, x))
     assert torch.equal(ops.maxplus_matmul(a[0], b[0]), tref.maxplus_matmul_ref(a[0], b[0]))
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[name] == before[name] + 1
+               for name in ("maxplus_bmm", "maxplus_bmv", "maxplus_matmul"))
 
 
 @pytest.mark.cuda
@@ -532,8 +674,72 @@ def test_mamba_chunk_scan_matches_its_plain_version_on_the_card(case, dtype):
     assert tref.scan_excess(y, plain_y, chunk) <= 1.0
     rms = plain_h.square().mean(dim=-1, keepdim=True).sqrt()
     assert ((h - plain_h).abs() <= 2.0**-20 * plain_h.abs() + 2.0**-14 * rms).all()
-    # the full scan: two launches around the combine, the card against the host
+    # the full scan: the states-only launch, the combine and the full launch,
+    # against the host's and against the sequential scan
+    counts = {k: ops.LAUNCHES[k] for k in ("mamba_chunk_states", "mamba_chunk_combine")}
     full_y, full_h = ops.mamba_scan(*args[:5], chunk=chunk)
-    assert ops.LAUNCHES["mamba_chunk_scan"] == before + 3
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_chunk_scan"] == before + 2
+    assert all(ops.LAUNCHES[k] == v + 1 for k, v in counts.items())
     host_y, _ = ops.mamba_scan(*(t.cpu() for t in args[:5]), chunk=chunk)
     assert tref.scan_excess(full_y.cpu(), host_y, chunk) <= 1.0 and full_h.shape == (b, d, n)
+    seq_y, seq_h = tref.mamba_scan_ref(*args[:5])
+    assert tref.scan_excess(full_y, seq_y, chunk) <= 1.0
+    assert tref.state_excess(full_h, seq_h) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_mamba_states_and_combine_on_the_card(case, dtype):
+    """The states-only launch gives the full launch's states bit for bit in
+    either exp mode, and with the fast exp2 stays within half the state's
+    tolerance of the plain version; the combine launch stays within it."""
+    dev = _need_cuda()
+    b, length, d, n, chunk = SCAN_CASES[case]
+    x, dt, a, bm, cm, h0 = _scan_args(b, length, d, n, dtype, dev, chunk, seed=2 * length + d)
+    zeros = torch.zeros_like(h0)
+    for fast in (False, True):
+        states = torch.empty_like(h0)
+        ops._scan_launch(x, dt, a, bm, None, None, None, states, chunk, fast, "mamba_chunk_states")
+        full_h = torch.empty_like(h0)
+        ops._scan_launch(x, dt, a, bm, cm, zeros, torch.empty_like(x), full_h, chunk, fast,
+                         "mamba_chunk_scan")
+        torch.cuda.synchronize()
+        assert torch.equal(states, full_h), fast
+    plain = tref.mamba_chunk_scan_ref(x, dt, a, bm, cm, zeros, chunk=chunk)[1]
+    states = ops.mamba_chunk_states(x, dt, a, bm, chunk=chunk)
+    assert tref.state_excess(states, plain) <= (0.5 if ops.STATES_FAST_EXP else 0.0)
+    before = ops.LAUNCHES["mamba_chunk_combine"]
+    h_init = ops.mamba_chunk_combine(dt, a, states, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_chunk_combine"] == before + 1
+    assert torch.equal(h_init[:, 0], torch.zeros_like(h_init[:, 0]))
+    assert tref.state_excess(h_init, tref.mamba_combine_ref(dt, a, states, chunk=chunk)) <= 1.0
+
+
+# ======================================================================
+# the spike recording's synaptic input, bit for bit
+# ======================================================================
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spike_input_bit_identical_twice_on_the_card(seed):
+    """In-degrees from 0 to several thousand (more than a warp's pass),
+    signed weights: every neuron's input equals the CPU's index_add_ over
+    the unsorted synapses, in two runs on the card."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(seed)
+    n, e = 3000, 300_000
+    post = rng.integers(0, n - 10, e)
+    post[:5000] = 7                               # one neuron with 5000 synapses
+    pre = rng.integers(0, n, e)
+    w = rng.standard_normal(e).astype(np.float32)
+    s = torch.as_tensor((rng.random(n) < 0.3).astype(np.float32))
+    host = torch.zeros(n).index_add_(0, torch.as_tensor(post), torch.as_tensor(w) * s[pre])
+    csr = tlif.synapse_csr(pre, post, w, n, dev)
+    assert torch.equal(tref.spike_input_ref(s, tlif.synapse_csr(pre, post, w, n, "cpu")), host)
+    before = ops.LAUNCHES["spike_input"]
+    first, second = ops.spike_input(s.to(dev), csr), ops.spike_input(s.to(dev), csr)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spike_input"] == before + 2
+    assert torch.equal(first.cpu(), host) and torch.equal(second, first)

@@ -120,6 +120,39 @@ def test_mamba_chunk_scan_matches_the_reference_kernel(B, L, D, N, chunk):
     assert tref.scan_excess(y, _t(ry), chunk) <= 1.0
 
 
+def test_mamba_combine_matches_the_references_lax_scan():
+    """The combine's plain version against the reference ``ops.mamba_scan``'s
+    own combine (its ``jnp`` dt sum, ``exp`` and ``lax.scan``, restated here
+    on the same inputs), and the port's states pass and combine against the
+    sequential scan's state at each chunk boundary.  Float32; dt sums of
+    a chunk may associate otherwise in XLA, so 1e-6 of the states' size."""
+    B, L, D, N, chunk = 2, 200, 64, 16, 32
+    x, dt, a, b, c = _scan_inputs(B, L, D, N, 17)
+    nc = -(-L // chunk)
+    s_local = np.random.default_rng(5).normal(size=(B, nc, D, N)).astype(F32)
+    port = tref.mamba_combine_ref(_t(dt), _t(a), _t(s_local), chunk=chunk)
+    # the reference's combine (src/repro/kernels/ops.py mamba_scan), whose dt
+    # is zero-padded to whole chunks
+    dtp = jnp.pad(jnp.asarray(dt), ((0, 0), (0, nc * chunk - L), (0, 0)))
+    decay = jnp.exp(dtp.reshape(B, nc, chunk, D).sum(axis=2)[..., None] * jnp.asarray(a)[None, None])
+
+    def comb(h, inp):
+        dec, s = inp
+        return dec * h + s, h
+
+    _, h_inits = jax.lax.scan(comb, jnp.zeros((B, D, N), jnp.float32),
+                              (jnp.moveaxis(decay, 1, 0), jnp.moveaxis(jnp.asarray(s_local), 1, 0)))
+    expect = np.moveaxis(np.asarray(h_inits), 0, 1)
+    np.testing.assert_allclose(_np(port), expect, rtol=1e-6, atol=1e-6 * np.abs(expect).max())
+    states = tops.mamba_chunk_states(*map(_t, (x, dt, a, b)), chunk=chunk)
+    h_init = tops.mamba_chunk_combine(_t(dt), _t(a), states, chunk=chunk)
+    for ci in range(1, nc):
+        _, h_seq = rref.mamba_scan_ref(*(jnp.asarray(t[:, :ci * chunk]) for t in (x, dt)),
+                                       jnp.asarray(a), *(jnp.asarray(t[:, :ci * chunk])
+                                                         for t in (b, c)))
+        assert tref.state_excess(h_init[:, ci], _t(np.asarray(h_seq))) <= 1.0
+
+
 def test_scan_excess_catches_a_wrong_chunk_state():
     """The limit passes another float32 order and fails a scan whose second
     chunk starts from a zero state, and a bf16 rounding of the output."""
