@@ -845,8 +845,8 @@ def main() -> None:
     for key, us in device_us(prof).items():
         if "mamba_chunk_combine_kernel" in key:
             scan_ms["combine"] += us / 1e3
-        elif "mamba_chunk_scan_kernel" in key:   # template <N, T, WRITE_Y, FAST>
-            scan_ms["full_pass" if ", true, false>" in key else "states_pass"] += us / 1e3
+        elif "mamba_chunk_scan_kernel" in key:   # template <N, T, WRITE_Y>
+            scan_ms["full_pass" if ", true>" in key else "states_pass"] += us / 1e3
     del prof
     check(prefill_launches["flash_attention"] == n_gqa
           and all(prefill_launches[k] == n_mamba for k in scan_parts) and combine == n_mamba,
@@ -1187,6 +1187,21 @@ def main() -> None:
     rtol7, row_tol7 = ref.SCAN_TOL[torch.float32]
     y_err, h_err = max_abs_err(ky, py), max_abs_err(kh, ph)
     del ky, kh, py, ph
+    # the whole scan of the same layer: ops.mamba_scan (the states pass, the
+    # combine and K7) against the plain route (the plain states, combine and
+    # chunk scan), within SCAN_TOL
+    ry, rh = ops.mamba_scan(x7, dt7, a7, b7, c7, chunk=chunk7)
+    ps = ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, torch.zeros_like(h07), chunk=chunk7)[1]
+    py, ph = ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7,
+                                      ref.mamba_combine_ref(dt7, a7, ps, chunk=chunk7),
+                                      chunk=chunk7)
+    ph = ph[:, -1]
+    route = {"route_y_tol_ratio": ref.scan_excess(ry, py, chunk7),
+             "route_state_tol_ratio": ref.state_excess(rh, ph),
+             "route_bit_identical": bool(torch.equal(ry, py) and torch.equal(rh, ph))}
+    del ry, rh, ps, py, ph
+    check(max(route["route_y_tol_ratio"], route["route_state_tol_ratio"]) <= 1.0,
+          f"ops.mamba_scan lies {route} of SCAN_TOL from the plain route")
     def k7_work(x, dt, a, b, c, h0):
         bsz, length, d = x.shape
         # x, dt and y; B and C; a; h0 and h_out.  Per (b, t, d, n) term seven
@@ -1207,17 +1222,15 @@ def main() -> None:
            tolerance={"rtol": ref.SCAN_TOL[x7.dtype][0], "row_tol": ref.SCAN_TOL[x7.dtype][1],
                       "state_rtol": rtol7, "state_row_tol": row_tol7},
            y_tol_ratio=y_ratio, state_tol_ratio=h_ratio, y_max_abs_err=y_err,
-           state_max_abs_err=h_err, dtype=str(x7.dtype).split(".")[-1], chunk=chunk7,
-           expf=terms7, expf_bound_ms=1e3 * terms7 / EX2_PER_S,
+           state_max_abs_err=h_err, **route, dtype=str(x7.dtype).split(".")[-1],
+           chunk=chunk7, expf=terms7, expf_bound_ms=1e3 * terms7 / EX2_PER_S,
            library_note="none: no single PyTorch call computes a selective scan")
     kernels[-1]["by_path"] = by_path("mamba_chunk_scan", k7_work, FP32_FLOPS_PER_S)
     del x7, dt7, a7, b7, c7, h07, path_largest
 
     # K7's states-only pass on the inputs of its largest call (jamba's bf16
-    # 32k prefill), from zero states: within half the state's limit of the
-    # plain version where it decays by exp2, and equal to the full launch's
-    # states in the same exp mode; the full launch's y in that mode is only
-    # read (why the full launch keeps the exact expf)
+    # 32k prefill), from zero states: equal to the plain version's states
+    # and to the full launch's
     x7, dt7, a7, b7 = largest["mamba_chunk_states"]["args"]
     chunk7 = largest["mamba_chunk_states"]["kwargs"].get("chunk", 128)
     zeros7 = torch.zeros((x7.shape[0], -(-x7.shape[1] // chunk7), x7.shape[2], a7.shape[1]),
@@ -1225,34 +1238,29 @@ def main() -> None:
     ks = ops.mamba_chunk_states(x7, dt7, a7, b7, chunk=chunk7)
     py, ps = ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, b7, zeros7, chunk=chunk7)
     s_ratio, s_err = ref.state_excess(ks, ps), max_abs_err(ks, ps)
-    fy, fh = torch.empty_like(x7), torch.empty_like(zeros7)
-    ops._scan_launch(x7, dt7, a7, b7, b7, zeros7, fy, fh, chunk7, ops.STATES_FAST_EXP,
-                     "mamba_chunk_scan")
-    states_equal_full = bool(torch.equal(ks, fh))
-    full_same_mode_y_ratio = ref.scan_excess(fy, py, chunk7)
-    del fy, fh, py
+    states_equal_full = bool(torch.equal(ks, ops.mamba_chunk_scan(
+        x7, dt7, a7, b7, b7, zeros7, chunk=chunk7)[1]))
+    del py
     check(states_equal_full, "the states-only pass differs from the full launch's states")
-    check(s_ratio <= (0.5 if ops.STATES_FAST_EXP else 0.0),
-          f"the states-only pass is {s_ratio} times the state's limit")
+    check(s_ratio == 0.0, f"the states-only pass is {s_ratio} times the state's limit, not 0")
 
     def states_work(x, dt, a, b):
         bsz, length, d = x.shape
         # x, dt and B in, a in, the states out; per (b, t, d, n) term dt*a,
-        # exp, (dt*x)*B and the update's FMA
+        # exp, decay*h, (dt*x)*B and the add
         nbytes = (2 * x.numel() + b.numel()) * x.element_size() + a.numel() * 4 \
             + bsz * (-(-length // chunk7)) * d * a.shape[1] * 4
-        return nbytes, 4 * bsz * length * d * a.shape[1] + bsz * length * d
+        return nbytes, 5 * bsz * length * d * a.shape[1] + bsz * length * d
 
     record("mamba_chunk_states", "src/repro_torch/csrc/mamba_scan.cu",
            "src/repro/kernels/mamba_scan.py:96",
            lambda: ops.mamba_chunk_states(x7, dt7, a7, b7, chunk=chunk7),
            lambda: ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, b7, zeros7, chunk=chunk7),
            s_err, *states_work(x7, dt7, a7, b7), FP32_FLOPS_PER_S, tol_ratio=s_ratio,
-           tolerance={"state_rtol": rtol7, "state_row_tol": row_tol7, "limit": 0.5},
-           fast_exp=ops.STATES_FAST_EXP, equals_full_launch_states=states_equal_full,
-           full_launch_same_exp_y_tol_ratio=full_same_mode_y_ratio,
+           tolerance={"state_rtol": rtol7, "state_row_tol": row_tol7, "limit": 0.0},
+           equals_full_launch_states=states_equal_full,
            dtype=str(x7.dtype).split(".")[-1], chunk=chunk7,
-           ex2_bound_ms=1e3 * terms7 / EX2_PER_S,
+           expf_bound_ms=1e3 * terms7 / EX2_PER_S,
            library_note="none: no single PyTorch call computes a selective scan")
 
     # the combine on the inputs of its largest call (the same prefill)

@@ -26,24 +26,19 @@
 //   (t, d, n) term: about 2.3 ms at jamba's 32k-token call (bf16, D = 8192,
 //   N = 16), where the bytes of x, dt, y and the states take 0.56 ms.
 // - The states-only launch (y == NULL: no C, no y, no h.C sum; h0 == NULL:
-//   zero states) may decay by exp2(dt * a*log2(e)) through ex2.approx.ftz:
-//   one MUFU.EX2 and a multiply, the state updated by one FMA.  A term is
-//   then 3 FP32 instructions and one MUFU.EX2 (16 a clock per SM), so the
-//   special-function units set the pace (about 1.2 ms at that call).  The
-//   first POLY_STATES of every 16 states may take a degree-6 polynomial
-//   exp2 on the FMA pipe instead; measured, any share of them made the
-//   launch slower (tools/scan_bmm_ab.py, variants polyK), so none does.  With
-//   fast_exp the full launch computes its states the same way, bit for bit
-//   (ops keeps the exact expf there: a bf16 y rounded from states an ulp
-//   away can flip).
+//   zero states) runs the same arithmetic, so its states equal the full
+//   launch's bit for bit.  It keeps the exact expf too: decayed by
+//   ex2.approx, the states land an ulp or so away, and the bf16 y that the
+//   full launch rounds from the chunk states combined from them flips often
+//   enough to read most of SCAN_TOL (tools/scan_bmm_ab.py, variant ex2).
 //
 // The combine: H(0) = 0, H(c) = exp(a * sum of chunk c-1's dt) * H(c-1) +
 // S(c-1), with S the states-only launch's output.  A block owns CD channels
 // of one batch row and walks the chunks in order: its threads first sum
 // each chunk's dt in increasing t into shared memory (CG chunks at a time,
 // coalesced along d), then a thread per (d, n) carries H through the
-// chunks with the full-precision expf.  Bound: the bytes of S and H, 0.27
-// GB at jamba's 32k call, 0.08 ms.
+// chunks with the full-precision expf.  Bound: the bytes of dt, S and H,
+// 0.81 GB at jamba's 32k call, 0.24 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,10 +46,8 @@
 namespace {
 
 constexpr int BD = 128;           // channels per scan block, one per thread
-constexpr int POLY_STATES = 0;    // of every 16 states, those whose fast exp2 is a polynomial
 constexpr int CD = 32;            // channels per combine block
 constexpr int CG = 64;            // chunks whose dt sums a combine block stages at a time
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -64,34 +57,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-__device__ __forceinline__ float ex2_mufu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 2^x on the FMA pipe: x = k + f with k = round(x), f in [-1/2, 1/2]; a
-// degree-6 fit of 2^f (at most 1.4 ulp) scaled by 2^k in the exponent
-// bits.  x is clamped to [-125, 127]: below, the true value is under
-// 2^-125 and this gives 2^-125 * 2^f, as harmless beside a state as the
-// 0 that ex2.approx.ftz gives there.
-__device__ __forceinline__ float ex2_poly(float x) {
-  constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23: adding it rounds to an integer
-  x = fminf(fmaxf(x, -125.0f), 127.0f);
-  const float t = __fadd_rn(x, MAGIC);
-  const float f = __fsub_rn(x, __fsub_rn(t, MAGIC));
-  float p = 1.5345806605182588e-4f;
-  p = __fmaf_rn(p, f, 1.3399932067841291e-3f);
-  p = __fmaf_rn(p, f, 9.618489071726799e-3f);
-  p = __fmaf_rn(p, f, 5.550328642129898e-2f);
-  p = __fmaf_rn(p, f, 2.4022646248340607e-1f);
-  p = __fmaf_rn(p, f, 6.931471824645996e-1f);
-  p = __fmaf_rn(p, f, 1.0f);
-  const int k = __float_as_int(t) - __float_as_int(MAGIC);
-  return __int_as_float(__float_as_int(p) + (int)((unsigned)k << 23));
-}
-
-template <int N, typename T, bool WRITE_Y, bool FAST>
+template <int N, typename T, bool WRITE_Y>
 __global__ void __launch_bounds__(BD)
 mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                         const float* __restrict__ a, const T* __restrict__ bm,
@@ -118,7 +84,7 @@ mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int64_t hoff = ((bi * n_chunks + ci) * (int64_t)D + d) * N;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    av[n] = FAST ? __fmul_rn(a[(int64_t)d * N + n], LOG2E) : a[(int64_t)d * N + n];
+    av[n] = a[(int64_t)d * N + n];
     h[n] = h0 != nullptr ? h0[hoff + n] : 0.0f;
   }
   const T* xp = x + row0 * D + d;
@@ -129,26 +95,11 @@ mamba_chunk_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     const float dtx = __fmul_rn(dtt, to_f(xp[(int64_t)t * D]));
     const float* bt = bs + t * N;
     const float* ct = cs + t * N;
-    float bv[N];
-    if (FAST) {  // measured: the fast launch runs faster on float4 loads, the exact one not
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 v = reinterpret_cast<const float4*>(bt)[q];
-        bv[4 * q] = v.x, bv[4 * q + 1] = v.y, bv[4 * q + 2] = v.z, bv[4 * q + 3] = v.w;
-      }
-      bt = bv;
-    }
     float yt = 0.0f;
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      if (FAST) {
-        const float arg = __fmul_rn(dtt, av[n]);
-        const float decay = n < POLY_STATES * N / 16 ? ex2_poly(arg) : ex2_mufu(arg);
-        h[n] = __fmaf_rn(decay, h[n], __fmul_rn(dtx, bt[n]));
-      } else {
-        const float decay = expf(__fmul_rn(dtt, av[n]));
-        h[n] = __fadd_rn(__fmul_rn(decay, h[n]), __fmul_rn(dtx, bt[n]));
-      }
+      const float decay = expf(__fmul_rn(dtt, av[n]));
+      h[n] = __fadd_rn(__fmul_rn(decay, h[n]), __fmul_rn(dtx, bt[n]));
       if (WRITE_Y) {
         const float p = __fmul_rn(h[n], ct[n]);
         yt = n == 0 ? p : __fadd_rn(yt, p);
@@ -202,7 +153,7 @@ mamba_chunk_combine_kernel(const T* __restrict__ dt, const float* __restrict__ a
   if (live) h_init[((bi * n_chunks + n_chunks - 1) * (int64_t)D + d) * N + n] = h;
 }
 
-template <int N, typename T, bool WRITE_Y, bool FAST>
+template <int N, typename T, bool WRITE_Y>
 int launch(const void* x, const void* dt, const float* a, const void* bm,
            const void* cm, const float* h0, void* y, float* hout, int Bt, int L,
            int D, int chunk, cudaStream_t stream) {
@@ -211,7 +162,7 @@ int launch(const void* x, const void* dt, const float* a, const void* bm,
   const size_t smem = (WRITE_Y ? 2 : 1) * (size_t)chunk * N * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const dim3 blocks((D + BD - 1) / BD, n_chunks, Bt);
-  mamba_chunk_scan_kernel<N, T, WRITE_Y, FAST><<<blocks, BD, smem, stream>>>(
+  mamba_chunk_scan_kernel<N, T, WRITE_Y><<<blocks, BD, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), a,
       static_cast<const T*>(bm), static_cast<const T*>(cm), h0,
       static_cast<T*>(y), hout, L, D, chunk, n_chunks);
@@ -220,24 +171,22 @@ int launch(const void* x, const void* dt, const float* a, const void* bm,
 
 template <int N, typename T>
 int dispatch_mode(const void* x, const void* dt, const float* a, const void* bm,
-                  const void* cm, const float* h0, void* y, float* hout, int fast_exp,
-                  int Bt, int L, int D, int chunk, cudaStream_t stream) {
+                  const void* cm, const float* h0, void* y, float* hout, int Bt, int L,
+                  int D, int chunk, cudaStream_t stream) {
   if (y == nullptr)
-    return fast_exp ? launch<N, T, false, true>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream)
-                    : launch<N, T, false, false>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
-  return fast_exp ? launch<N, T, true, true>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream)
-                  : launch<N, T, true, false>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
+    return launch<N, T, false>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
+  return launch<N, T, true>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
 }
 
 template <typename T>
 int dispatch_n(const void* x, const void* dt, const float* a, const void* bm,
-               const void* cm, const float* h0, void* y, float* hout, int fast_exp,
-               int Bt, int L, int D, int N, int chunk, cudaStream_t stream) {
+               const void* cm, const float* h0, void* y, float* hout, int Bt, int L,
+               int D, int N, int chunk, cudaStream_t stream) {
   switch (N) {
     case 8:
-      return dispatch_mode<8, T>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, chunk, stream);
+      return dispatch_mode<8, T>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
     case 16:
-      return dispatch_mode<16, T>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, chunk, stream);
+      return dispatch_mode<16, T>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, chunk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -273,14 +222,14 @@ int combine_n(const void* dt, const float* a, const float* s_local, float* h_ini
 // y NULL: states only (cm unused); h0 NULL: every chunk starts from zero.
 extern "C" int mamba_chunk_scan(const void* x, const void* dt, const float* a,
                                 const void* bm, const void* cm, const float* h0,
-                                void* y, float* hout, int is_bf16, int fast_exp, int Bt,
-                                int L, int D, int N, int chunk, cudaStream_t stream) {
+                                void* y, float* hout, int is_bf16, int Bt, int L, int D,
+                                int N, int chunk, cudaStream_t stream) {
   if (L <= 0 || D <= 0 || Bt <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
   if (y != nullptr && cm == nullptr) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return dispatch_n<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, N,
-                                     chunk, stream);
-  return dispatch_n<float>(x, dt, a, bm, cm, h0, y, hout, fast_exp, Bt, L, D, N, chunk, stream);
+    return dispatch_n<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, N, chunk,
+                                     stream);
+  return dispatch_n<float>(x, dt, a, bm, cm, h0, y, hout, Bt, L, D, N, chunk, stream);
 }
 
 extern "C" int mamba_chunk_combine(const void* dt, const float* a, const float* s_local,

@@ -57,9 +57,9 @@ SIGNATURES = {
         "lif_crossbar_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     },
     "mamba_scan": {
-        # x, dt, a, b, c, h0, y, h_out, is_bf16, fast_exp, B, L, D, N, chunk,
-        # stream (y NULL: states only; h0 NULL: zero states)
-        "mamba_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # x, dt, a, b, c, h0, y, h_out, is_bf16, B, L, D, N, chunk, stream
+        # (y NULL: states only; h0 NULL: zero states)
+        "mamba_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # dt, a, s_local, h_init, is_bf16, B, L, D, N, chunk, stream
         "mamba_chunk_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },

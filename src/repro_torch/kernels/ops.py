@@ -332,13 +332,6 @@ def spike_input(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
 # ======================================================================
 # K7: chunked selective scan
 # ======================================================================
-#: the states-only pass decays by ``ex2.approx`` (one MUFU.EX2 and a multiply)
-#: where the chunk scan keeps the full-precision ``expf``: its chunk-end
-#: states stay within half of the state's ``SCAN_TOL`` (PERF.md), while a bf16
-#: y rounded from them could not (a flipped rounding reads up to 1)
-STATES_FAST_EXP = True
-
-
 def _scan_on_cpu(x, dt, a, b, c, h0, chunk) -> bool:
     """Whether the chunk scan's operands lie on the CPU, after checking their
     shapes (on every device) and what the kernel takes (on CUDA); ``c`` and
@@ -372,7 +365,7 @@ def _scan_on_cpu(x, dt, a, b, c, h0, chunk) -> bool:
     return False
 
 
-def _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, fast_exp, name):
+def _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, name):
     """One K7 launch; ``y`` None scans states only (``c`` unused), ``h0``
     None starts every chunk from zero."""
     bsz, length, d = x.shape
@@ -382,8 +375,7 @@ def _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, fast_exp, name):
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             None if c is None else c.data_ptr(), None if h0 is None else h0.data_ptr(),
             None if y is None else y.data_ptr(), h_out.data_ptr(),
-            int(x.dtype == torch.bfloat16), int(fast_exp), bsz, length, d, a.shape[1], chunk,
-            stream,
+            int(x.dtype == torch.bfloat16), bsz, length, d, a.shape[1], chunk, stream,
         )
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -402,7 +394,7 @@ def mamba_chunk_scan(
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
     if y.numel():
-        _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, False, "mamba_chunk_scan")
+        _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, "mamba_chunk_scan")
     return y, h_out
 
 
@@ -411,8 +403,7 @@ def mamba_chunk_states(
 ) -> torch.Tensor:
     """Every chunk's end state (B, ceil(L/chunk), D, N) float32, each chunk
     scanned from zero: the states of :func:`mamba_chunk_scan` from zero
-    states, without y (K7's states-only launch, decaying by
-    :data:`STATES_FAST_EXP`'s exponential on the card)."""
+    states bit for bit, without y (K7's states-only launch on the card)."""
     bsz, length, d = x.shape
     nc = -(-length // chunk)
     if _scan_on_cpu(x, dt, a, b, None, None, chunk):
@@ -420,8 +411,7 @@ def mamba_chunk_states(
         return ref.mamba_chunk_scan_ref(x, dt, a, b, b, zeros, chunk=chunk)[1]
     h_out = torch.empty((bsz, nc, d, a.shape[1]), dtype=torch.float32, device=x.device)
     if h_out.numel():
-        _scan_launch(x, dt, a, b, None, None, None, h_out, chunk, STATES_FAST_EXP,
-                     "mamba_chunk_states")
+        _scan_launch(x, dt, a, b, None, None, None, h_out, chunk, "mamba_chunk_states")
     return h_out
 
 

@@ -348,7 +348,7 @@ def mamba_scan_ref(
 #: channel) row (an ulp of a decay carried through the chunk's 128 steps
 #: moves the state by about 128 * 2^-24 of its size, about 2^-17).  The
 #: float32 limits also hold the states (:func:`state_excess`), and with
-#: them the states-only pass's exp2 and the combine's summed dt.
+#: them the combine's summed dt.
 SCAN_TOL = {torch.float32: (2.0**-20, 2.0**-14), torch.bfloat16: (2.0**-7, 2.0**-14)}
 
 

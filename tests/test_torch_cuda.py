@@ -233,9 +233,9 @@ def test_every_launch_runs_under_its_operands_device(monkeypatch):
 
 def test_scan_and_matvec_routes_reach_their_c_entries(monkeypatch):
     """``mamba_scan`` over more than one chunk: the states-only launch (no
-    y, no c, no h0; fast exp2 as ``STATES_FAST_EXP`` says), one combine
-    launch on its output, then the full launch (exact expf) from the
-    combine's output; over one chunk only the full launch, from zeros.
+    y, no c, no h0), one combine launch on its output, then the full launch
+    from the combine's output; over one chunk only the full launch, from
+    zeros.
     ``maxplus_matmul`` at N = 1 is K2's C entry with G = 1 and N = 1, the
     matvec route inside it."""
     lib = _fake_lib(monkeypatch)
@@ -247,16 +247,16 @@ def test_scan_and_matvec_routes_reach_their_c_entries(monkeypatch):
     (_, states, _), (_, comb, _), (_, full, _) = lib.calls
     assert states[:3] == (x.data_ptr(), dt.data_ptr(), a.data_ptr())
     assert states[4:7] == (None, None, None) and states[7] == comb[2]
-    assert states[8:15] == (1, int(ops.STATES_FAST_EXP), 2, 40, 16, 8, 16)
+    assert states[8:14] == (1, 2, 40, 16, 8, 16)
     assert comb[:2] == (dt.data_ptr(), a.data_ptr()) and comb[4:10] == (1, 2, 40, 16, 8, 16)
     assert full[4] == c.data_ptr() and full[5] == comb[3] and full[6] is not None
-    assert full[8:15] == (1, 0, 2, 40, 16, 8, 16)
+    assert full[8:14] == (1, 2, 40, 16, 8, 16)
     assert ops.COMBINE_LAUNCHES["mamba_scan"] == combine_before + 1
     lib.calls.clear()
     ops.mamba_scan(*(t[:, :16].contiguous() for t in (x, dt)), a,
                    *(t[:, :16].contiguous() for t in (b, c)), chunk=16)
     (entry, one, _), = lib.calls
-    assert entry == "mamba_chunk_scan" and one[6] is not None and one[9] == 0
+    assert entry == "mamba_chunk_scan" and one[5] is not None and one[6] is not None
     lib.calls.clear()
     m = torch.zeros((150, 150))
     out = ops.maxplus_matmul(m, torch.zeros((150, 1)))
@@ -692,24 +692,21 @@ def test_mamba_chunk_scan_matches_its_plain_version_on_the_card(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", list(SCAN_CASES))
 def test_mamba_states_and_combine_on_the_card(case, dtype):
-    """The states-only launch gives the full launch's states bit for bit in
-    either exp mode, and with the fast exp2 stays within half the state's
-    tolerance of the plain version; the combine launch stays within it."""
+    """The states-only launch gives the full launch's states from zero bit
+    for bit, and the plain version's; the combine launch stays within the
+    state's tolerance of its plain version."""
     dev = _need_cuda()
     b, length, d, n, chunk = SCAN_CASES[case]
     x, dt, a, bm, cm, h0 = _scan_args(b, length, d, n, dtype, dev, chunk, seed=2 * length + d)
     zeros = torch.zeros_like(h0)
-    for fast in (False, True):
-        states = torch.empty_like(h0)
-        ops._scan_launch(x, dt, a, bm, None, None, None, states, chunk, fast, "mamba_chunk_states")
-        full_h = torch.empty_like(h0)
-        ops._scan_launch(x, dt, a, bm, cm, zeros, torch.empty_like(x), full_h, chunk, fast,
-                         "mamba_chunk_scan")
-        torch.cuda.synchronize()
-        assert torch.equal(states, full_h), fast
-    plain = tref.mamba_chunk_scan_ref(x, dt, a, bm, cm, zeros, chunk=chunk)[1]
     states = ops.mamba_chunk_states(x, dt, a, bm, chunk=chunk)
-    assert tref.state_excess(states, plain) <= (0.5 if ops.STATES_FAST_EXP else 0.0)
+    full_h = torch.empty_like(h0)
+    ops._scan_launch(x, dt, a, bm, cm, zeros, torch.empty_like(x), full_h, chunk,
+                     "mamba_chunk_scan")
+    torch.cuda.synchronize()
+    assert torch.equal(states, full_h)
+    plain = tref.mamba_chunk_scan_ref(x, dt, a, bm, cm, zeros, chunk=chunk)[1]
+    assert tref.state_excess(states, plain) == 0.0
     before = ops.LAUNCHES["mamba_chunk_combine"]
     h_init = ops.mamba_chunk_combine(dt, a, states, chunk=chunk)
     torch.cuda.synchronize()

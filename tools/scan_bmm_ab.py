@@ -5,21 +5,24 @@ sources and their named variants (each a one-line edit), in turns.
 
 K7, at jamba's largest call (bf16, (1, 32768, 8192), N = 16, chunk 128) on
 the inputs of its first Mamba layer (init_mamba's weights from seed 0 at
-full width, a standard normal input): the old full launch, the new one
-(both must equal the plain version bit for bit), the full launch with the
-fast exp2 (its y and state tolerance ratios), the states-only launch in
-each variant (``K7_VARIANTS``; ratios against the plain states, and equal
-to the full launch in the same mode), the combine against its plain loop,
-and the whole scan by the old route (K7, the plain combine, K7) against the
-new one (states, combine, K7).
+full width, a standard normal input): the old full launch and the new one
+(both must equal the plain version bit for bit); in each variant
+(``K7_VARIANTS``) the states-only launch (equal to the full launch's
+states from zero) and the full launch, with their tolerance ratios against
+the plain version, and the whole scan with that variant's states pass and
+the package's combine and full launch (the route's y and state ratios
+against the plain route); the combine against its plain loop; and the
+whole scan by the old route (K7, the plain combine, K7) against the new
+one (states, combine, K7).
 
 K2 at the dense path's (64, 192, 192)^2 and K4's (150, 150) x (150, 1):
 old and new in each variant (``K2_VARIANTS``), each bit-identical to the
-plain version.  spike_input at HeartClass's synapses (``SPIKE_VARIANTS``).
+plain version.  spike_input at HeartClass's synapses against its plain
+version on the card.
 
 Run from the repository root on a machine with the card:
 
-    python3 tools/scan_bmm_ab.py --k7 base,poly3,noexp --k2 base,m8n8 --spike base,thread
+    python3 tools/scan_bmm_ab.py --k7 base,ex2,noexp --k2 base,m8n8
 
 One JSON line per measurement, each with the card's name and power limit.
 It exits non-zero if a kernel does not build or differs from its plain
@@ -37,17 +40,16 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from relax_lif_ab import in_turns, timed  # noqa: E402
+from relax_lif_ab import in_turns  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import apps, lif  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.models import mamba as tmamba  # noqa: E402
 
 OLD = ROOT / "tools" / "pr15_kernels"
@@ -56,13 +58,17 @@ OUT = ROOT / "build" / "repro_torch_kernels" / "scan_bmm_ab"
 #: name -> (old, new) replacements in csrc/mamba_scan.cu
 K7_VARIANTS = {
     "base": [],
-    **{f"poly{k}": [("constexpr int POLY_STATES = 0;", f"constexpr int POLY_STATES = {k};")]
-       for k in (2, 3, 4, 6)},
-    "scalar_b": [("    if (FAST) {  // measured", "    if (false) {  // measured")],
+    # the decay as exp2(dt * a*log2(e)) by ex2.approx (one MUFU.EX2), the
+    # state updated by one FMA: the cheaper exponential that was given up
+    "ex2": [("    av[n] = a[(int64_t)d * N + n];",
+             "    av[n] = __fmul_rn(a[(int64_t)d * N + n], 1.4426950408889634f);"),
+            ("      const float decay = expf(__fmul_rn(dtt, av[n]));\n"
+             "      h[n] = __fadd_rn(__fmul_rn(decay, h[n]), __fmul_rn(dtx, bt[n]));",
+             "      float decay;\n"
+             "      asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(decay) : \"f\"(__fmul_rn(dtt, av[n])));\n"
+             "      h[n] = __fmaf_rn(decay, h[n], __fmul_rn(dtx, bt[n]));")],
     # no exponential at all (wrong results): what the rest of a term costs
-    "noexp": [("const float decay = n < POLY_STATES * N / 16 ? ex2_poly(arg) : ex2_mufu(arg);",
-               "const float decay = arg;"),
-              ("const float decay = expf(__fmul_rn(dtt, av[n]));",
+    "noexp": [("const float decay = expf(__fmul_rn(dtt, av[n]));",
                "const float decay = __fmul_rn(dtt, av[n]);")],
 }
 #: name -> (old, new) replacements in csrc/maxplus_matmul.cu
@@ -84,13 +90,6 @@ K2_VARIANTS = {
     "diag_maxonly": [("acc[r][j] = fmaxf(acc[r][j], __fadd_rn(a, bv[j]));",
                       "acc[r][j] = fmaxf(acc[r][j], fmaxf(a, bv[j]));")],
 }
-#: name -> (old, new) replacements in csrc/spike_input.cu
-SPIKE_VARIANTS = {
-    "base": [],
-    "thread": [("constexpr bool WARP_PER_NODE = true;", "constexpr bool WARP_PER_NODE = false;")],
-}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-OLD_SCAN = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 
 
 def emit(obj) -> None:
@@ -110,15 +109,16 @@ def _variant(source: str, edits) -> str:
     return source
 
 
-def build(k7: list[str], k2: list[str], spike: list[str]) -> dict[str, ctypes.CDLL]:
-    """Libraries ``scan_old``, ``bmm_old`` and ``<kernel>_<variant>``, built in parallel."""
+def build(k7: list[str], k2: list[str]) -> dict[str, ctypes.CDLL]:
+    """Libraries ``scan_old``, ``bmm_old``, ``spike_base`` and
+    ``<kernel>_<variant>``, built in parallel."""
     src = {stem: (_build.CSRC / f"{stem}.cu").read_text()
            for stem in ("mamba_scan", "maxplus_matmul", "spike_input")}
     jobs = {"scan_old": (OLD / "mamba_scan.cu").read_text(),
             "bmm_old": (OLD / "maxplus_matmul.cu").read_text(),
             **{f"scan_{n}": _variant(src["mamba_scan"], K7_VARIANTS[n]) for n in k7},
             **{f"bmm_{n}": _variant(src["maxplus_matmul"], K2_VARIANTS[n]) for n in k2},
-            **{f"spike_{n}": _variant(src["spike_input"], SPIKE_VARIANTS[n]) for n in spike}}
+            "spike_base": src["spike_input"]}
     procs = {}
     for name, text in jobs.items():
         d = OUT / name
@@ -140,8 +140,7 @@ def build(k7: list[str], k2: list[str], spike: list[str]) -> dict[str, ctypes.CD
         stem = {"scan": "mamba_scan", "bmm": "maxplus_matmul", "spike": "spike_input"}[kind]
         for fn, argtypes in _build.SIGNATURES[stem].items():
             if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = OLD_SCAN if (name == "scan_old" and
-                                                         fn == "mamba_chunk_scan") else argtypes
+                getattr(lib, fn).argtypes = argtypes
         libs[name] = lib
     return libs
 
@@ -151,21 +150,18 @@ def stream() -> int:
 
 
 # ---------------------------------------------------------------------- K7
-def scan_call(lib, old: bool, x, dt, a, b, c, h0, *, y=True, fast=False, chunk=128):
-    """One K7 launch of a library: ``(y or None, h_out)``; the old library
-    takes only the full launch."""
+def scan_call(lib, x, dt, a, b, c, h0, *, y=True, chunk=128):
+    """One K7 launch of a library: ``(y or None, h_out)``; ``y`` False is
+    the states-only launch (the old library has none)."""
     bsz, length, d = x.shape
     n = a.shape[1]
     nc = -(-length // chunk)
     yy = torch.empty_like(x) if y else None
     h_out = torch.empty((bsz, nc, d, n), dtype=torch.float32, device=x.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    head = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), ptr(c), ptr(h0), ptr(yy),
-            h_out.data_ptr(), int(x.dtype == torch.bfloat16))
-    if old:
-        err = lib.mamba_chunk_scan(*head, bsz, length, d, n, chunk, stream())
-    else:
-        err = lib.mamba_chunk_scan(*head, int(fast), bsz, length, d, n, chunk, stream())
+    err = lib.mamba_chunk_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), ptr(c),
+                               ptr(h0), ptr(yy), h_out.data_ptr(), int(x.dtype == torch.bfloat16),
+                               bsz, length, d, n, chunk, stream())
     check(err == 0, f"K7 launch failed with cudaError_t {err}")
     return yy, h_out
 
@@ -197,66 +193,63 @@ def scan_inputs(seq: int):
 def k7(libs, variants, smi, seq):
     x, dt, a, b, c, chunk = scan_inputs(seq)
     zeros = torch.zeros((1, -(-seq // chunk), x.shape[2], a.shape[1]), device=x.device)
-    plain_y0, plain_s = ref.mamba_chunk_scan_ref(x, dt, a, b, c, zeros, chunk=chunk)
+    plain_s = ref.mamba_chunk_scan_ref(x, dt, a, b, c, zeros, chunk=chunk)[1]
     h_init = ref.mamba_combine_ref(dt, a, plain_s, chunk=chunk)
     plain_y, plain_h = ref.mamba_chunk_scan_ref(x, dt, a, b, c, h_init, chunk=chunk)
-    old, base = libs["scan_old"], libs[f"scan_{variants[0]}"]
-    oy, oh = scan_call(old, True, x, dt, a, b, c, h_init, chunk=chunk)
-    ny, nh = scan_call(base, False, x, dt, a, b, c, h_init, chunk=chunk)
-    check(torch.equal(oy, plain_y) and torch.equal(oh, plain_h), "old K7 differs from plain")
-    check(torch.equal(ny, plain_y) and torch.equal(nh, plain_h), "new K7 differs from plain")
-    terms = x.numel() * a.shape[1]
+    old, base = libs["scan_old"], libs["scan_base"]
+    for name, lib in (("old", old), ("new", base)):
+        ky, kh = scan_call(lib, x, dt, a, b, c, h_init, chunk=chunk)
+        check(torch.equal(ky, plain_y) and torch.equal(kh, plain_h), f"{name} K7 differs from plain")
+    del ky, kh
+
+    def route(states_lib):
+        """The whole scan: ``states_lib``'s states pass, the package's combine and K7."""
+        s = scan_call(states_lib, x, dt, a, b, None, None, y=False, chunk=chunk)[1]
+        return scan_call(base, x, dt, a, b, c, combine_call(base, dt, a, s, chunk), chunk=chunk)
+
     row = {"kernel": "mamba_chunk_scan", "shape": [*x.shape, a.shape[1]], "chunk": chunk,
-           "terms": terms, "dt_a_abs_max": float((dt.float().amax() * a.abs().amax())),
-           "nvidia_smi": smi}
-    # the full launch in each exp mode, and each variant's states pass
-    fast_y, fast_h = scan_call(base, False, x, dt, a, b, c, h_init, fast=True, chunk=chunk)
-    row["fast_full_y_tol_ratio"] = ref.scan_excess(fast_y, plain_y, chunk)
-    row["fast_full_state_tol_ratio"] = ref.state_excess(fast_h, plain_h)
-    del fast_y, fast_h, oy, oh, ny, nh
-    fns = {"old_full": lambda: scan_call(old, True, x, dt, a, b, c, h_init, chunk=chunk),
-           "new_full": lambda: scan_call(base, False, x, dt, a, b, c, h_init, chunk=chunk),
-           "new_full_fast": lambda: scan_call(base, False, x, dt, a, b, c, h_init, fast=True,
-                                              chunk=chunk)}
+           "terms": x.numel() * a.shape[1],
+           "dt_a_abs_max": float((dt.float().amax() * a.abs().amax())), "nvidia_smi": smi}
+    fns = {"old_full": lambda: scan_call(old, x, dt, a, b, c, h_init, chunk=chunk)}
     for v in variants:
         lib = libs[f"scan_{v}"]
-        for fast in (False, True):
-            _, st = scan_call(lib, False, x, dt, a, b, None, None, y=False, fast=fast, chunk=chunk)
-            _, full = scan_call(lib, False, x, dt, a, b, c, zeros, fast=fast, chunk=chunk)
-            key = f"{v}_states_{'fast' if fast else 'exact'}"
-            row[f"{key}_equals_full"] = bool(torch.equal(st, full))
-            if v != "noexp":
-                row[f"{key}_state_tol_ratio"] = ref.state_excess(st, plain_s)
-            fns[key] = (lambda lib=lib, fast=fast: scan_call(
-                lib, False, x, dt, a, b, None, None, y=False, fast=fast, chunk=chunk))
-        if v != variants[0]:
-            fns[f"{v}_full"] = lambda lib=lib: scan_call(lib, False, x, dt, a, b, c, h_init,
-                                                         chunk=chunk)
+        st = scan_call(lib, x, dt, a, b, None, None, y=False, chunk=chunk)[1]
+        row[f"{v}_states_equal_full"] = bool(torch.equal(
+            st, scan_call(lib, x, dt, a, b, c, zeros, chunk=chunk)[1]))
+        fns[f"{v}_states"] = lambda lib=lib: scan_call(lib, x, dt, a, b, None, None, y=False,
+                                                       chunk=chunk)
+        fns[f"{v}_full"] = lambda lib=lib: scan_call(lib, x, dt, a, b, c, h_init, chunk=chunk)
+        if v == "noexp":   # wrong results, timed only
+            continue
+        fy, fh = scan_call(lib, x, dt, a, b, c, h_init, chunk=chunk)
+        ry, rh = route(lib)
+        row.update({f"{v}_states_tol_ratio": ref.state_excess(st, plain_s),
+                    f"{v}_full_y_tol_ratio": ref.scan_excess(fy, plain_y, chunk),
+                    f"{v}_full_state_tol_ratio": ref.state_excess(fh, plain_h),
+                    f"{v}_route_y_tol_ratio": ref.scan_excess(ry, plain_y, chunk),
+                    f"{v}_route_state_tol_ratio": ref.state_excess(rh, plain_h)})
+        del st, fy, fh, ry, rh
+    check(row["base_states_equal_full"] and row["base_states_tol_ratio"] == 0.0,
+          "the states-only launch differs from the plain states")
+    check(max(row["base_route_y_tol_ratio"], row["base_route_state_tol_ratio"]) <= 1.0,
+          "the new route lies beyond SCAN_TOL of the plain route")
     row["ms_in_turns"] = in_turns(fns)
     emit(row)
     # the combine, and the whole scan by either route
-    s_fast = scan_call(base, False, x, dt, a, b, None, None, y=False, fast=True, chunk=chunk)[1]
     kc = combine_call(base, dt, a, plain_s, chunk)
-    combine = {"kernel": "mamba_chunk_combine", "tol_ratio": ref.state_excess(
-        kc, h_init), "nvidia_smi": smi}
+    combine = {"kernel": "mamba_chunk_combine", "tol_ratio": ref.state_excess(kc, h_init),
+               "equals_plain": bool(torch.equal(kc, h_init)), "nvidia_smi": smi}
+    del kc
 
     def old_route():
-        s = scan_call(old, True, x, dt, a, b, c, zeros, chunk=chunk)[1]
-        hi = ref.mamba_combine_ref(dt, a, s, chunk=chunk)
-        return scan_call(old, True, x, dt, a, b, c, hi, chunk=chunk)
-
-    def new_route():
-        s = scan_call(base, False, x, dt, a, b, None, None, y=False, fast=ops.STATES_FAST_EXP,
-                      chunk=chunk)[1]
-        return scan_call(base, False, x, dt, a, b, c, combine_call(base, dt, a, s, chunk),
+        s = scan_call(old, x, dt, a, b, c, zeros, chunk=chunk)[1]
+        return scan_call(old, x, dt, a, b, c, ref.mamba_combine_ref(dt, a, s, chunk=chunk),
                          chunk=chunk)
 
-    seq_y = new_route()[0]
-    combine["new_route_y_tol_ratio_vs_plain_route"] = ref.scan_excess(seq_y, plain_y, chunk)
     combine["ms_in_turns"] = in_turns({
-        "plain_combine": lambda: ref.mamba_combine_ref(dt, a, s_fast, chunk=chunk),
-        "combine": lambda: combine_call(base, dt, a, s_fast, chunk),
-        "old_route": old_route, "new_route": new_route})
+        "plain_combine": lambda: ref.mamba_combine_ref(dt, a, plain_s, chunk=chunk),
+        "combine": lambda: combine_call(base, dt, a, plain_s, chunk),
+        "old_route": old_route, "new_route": lambda: route(base)})
     emit(combine)
 
 
@@ -293,7 +286,7 @@ def k2(libs, variants, smi):
 
 
 # ---------------------------------------------------------------- spike_input
-def spike(libs, variants, smi):
+def spike(libs, smi):
     dev = torch.device("cuda")
     snn = apps.build_app("HeartClass")
     csr, _ = lif.snn_tensors(snn, dev)
@@ -309,12 +302,9 @@ def spike(libs, variants, smi):
         check(err == 0, f"spike_input launch failed with cudaError_t {err}")
         return out
 
-    fns = {}
-    for v in variants:
-        lib = libs[f"spike_{v}"]
-        check(torch.equal(call(lib).cpu(), host), f"spike_input {v} differs from the host")
-        fns[v] = (lambda lib=lib: call(lib))
-    fns["plain_on_card"] = lambda: ref.spike_input_ref(s, csr)
+    lib = libs["spike_base"]
+    check(torch.equal(call(lib).cpu(), host), "spike_input differs from the host")
+    fns = {"base": lambda: call(lib), "plain_on_card": lambda: ref.spike_input_ref(s, csr)}
     deg = torch.diff(csr.indptr.long())
     e = int(csr.pre.numel())
     emit({"kernel": "spike_input", "neurons": snn.n_neurons, "synapses": e,
@@ -327,20 +317,20 @@ def main(argv: list[str]) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7", default="base", help="comma-separated K7_VARIANTS")
     ap.add_argument("--k2", default="base", help="comma-separated K2_VARIANTS")
-    ap.add_argument("--spike", default="base", help="comma-separated SPIKE_VARIANTS")
     ap.add_argument("--seq", type=int, default=32768, help="K7's tokens (jamba's prefill_32k)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    k7_v, k2_v, spike_v = args.k7.split(","), args.k2.split(","), args.spike.split(",")
+    # base first: the other variants are held against it
+    k7_v, k2_v = (["base"] + [v for v in a.split(",") if v != "base"] for a in (args.k7, args.k2))
     t0 = time.perf_counter()
-    libs = build(k7_v, k2_v, spike_v)
+    libs = build(k7_v, k2_v)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     emit({"phase": "build", "s": time.perf_counter() - t0, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi})
     k2(libs, k2_v, smi)
-    spike(libs, spike_v, smi)
+    spike(libs, smi)
     k7(libs, k7_v, smi, args.seq)
 
 
