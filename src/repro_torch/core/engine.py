@@ -41,7 +41,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from .hardware import ChipState, HardwareConfig
-from ..device import resolve
+from ..device import no_mesh, resolve
 from .maxplus import (
     NEG_INF,
     EdgeStack,
@@ -736,8 +736,15 @@ class EngineReport:
 class PreparedExec:
     """One application's stacked analysis inputs, built but not yet solved.
 
-    Produced by :func:`prepare_execution`, solved by :func:`batch_execute`
-    and turned into an :class:`EngineReport` by :func:`finish_execution`.
+    Produced by :func:`prepare_execution`; consumed either by
+    :func:`batch_execute` (one solve per prepared stack) or by
+    :func:`batch_execute_fused`, which concatenates the rows of MANY
+    independent prepared stacks into one fused :class:`EdgeStack` so a
+    whole tick's worth of scoring — several optimizer populations,
+    several region components — pays the device round trips once.
+    ``rel_tol`` rides along so a fused solve can take the tightest
+    tolerance over its members (tighter is sound for all rows, it only
+    costs bisection rounds).
     """
 
     app: SDFG
@@ -768,7 +775,9 @@ def prepare_execution(
 ) -> PreparedExec:
     """Build one candidate batch's :class:`EdgeStack` and row bounds.
 
-    The build half of :func:`batch_execute` (host numpy).
+    The build half of :func:`batch_execute` (host numpy), factored out so
+    independent batches (different apps, different region components) can
+    be fused into a single analysis call (:func:`batch_execute_fused`).
     """
     bindings = _as_binding_matrix(bindings, app.n_actors)
     t0 = time.perf_counter()
@@ -839,6 +848,112 @@ def _resolve_backend(backend: str) -> str:
     return "csr" if backend == "auto" else backend
 
 
+def fuse_stacks(
+    stacks: Sequence[EdgeStack],
+) -> tuple[EdgeStack, list[slice]]:
+    """Concatenate independent EdgeStacks into ONE row-stacked batch.
+
+    Pads every stack to the common (n_actors, n_edges) envelope — padded
+    edge slots carry ``-inf`` weight (the (max,+) neutral element) so
+    they are invisible to every backend, and extra actors are isolated —
+    then stacks rows.  The ``"csr"`` lambda-search is row-local, so its
+    fused result restricted to each member's row slice is bit-for-bit
+    the result of analyzing that member alone (at equal tolerance);
+    ``"edges"`` keeps the reference's pairwise-summed path bound, which
+    padding can move by an ulp.  Returns the fused stack and each
+    member's row slice.
+    """
+    assert stacks, "need at least one stack to fuse"
+    if len(stacks) == 1:
+        return stacks[0], [slice(0, stacks[0].n_graphs)]
+    n_max = max(s.n_actors for s in stacks)
+    e_max = max(s.n_edges for s in stacks)
+    srcs, dsts, toks, ws = [], [], [], []
+    slices: list[slice] = []
+    row = 0
+    for s in stacks:
+        b, e = s.n_graphs, s.n_edges
+        pad = e_max - e
+        if pad:
+            srcs.append(np.pad(s.src, ((0, 0), (0, pad))))
+            dsts.append(np.pad(s.dst, ((0, 0), (0, pad))))
+            toks.append(np.pad(s.tokens, ((0, 0), (0, pad)),
+                               constant_values=1))
+            ws.append(np.pad(s.weights, ((0, 0), (0, pad)),
+                             constant_values=NEG_INF))
+        else:
+            srcs.append(s.src)
+            dsts.append(s.dst)
+            toks.append(s.tokens)
+            ws.append(s.weights)
+        slices.append(slice(row, row + b))
+        row += b
+    fused = EdgeStack(
+        n_actors=n_max,
+        src=np.concatenate(srcs),
+        dst=np.concatenate(dsts),
+        tokens=np.concatenate(toks),
+        weights=np.concatenate(ws),
+    )
+    return fused, slices
+
+
+def batch_execute_fused(
+    preps: Sequence[PreparedExec],
+    *,
+    backend: str = "auto",
+    pad_shapes: Optional[bool] = None,
+    mesh=None,
+    device=None,
+) -> list[EngineReport]:
+    """Solve MANY independent prepared batches in ONE analysis call.
+
+    The cross-region fused scoring path: rows from every prepared stack
+    (one optimizer generation per region component, elite re-scores,
+    pending admissions) are concatenated (:func:`fuse_stacks`) and run
+    through a single :func:`~repro_torch.core.maxplus.mcr_batch` on
+    ``device``, so its transfers, host syncs and kernel launches are paid
+    once per tick instead of once per region.  The fused solve uses the
+    TIGHTEST member tolerance (sound for all rows).  Under ``"csr"``
+    per-member results are bit-for-bit the standalone results at that
+    tolerance (see :func:`fuse_stacks`).  ``with_starts`` is deliberately
+    unsupported — scoring paths never need start vectors.  ``backend``,
+    ``pad_shapes`` and ``device`` are as in :func:`batch_execute`;
+    ``mesh`` (the sharded solve) is not ported and must be ``None``.
+    """
+    assert preps, "need at least one prepared execution to fuse"
+    no_mesh(mesh, "batch_execute_fused(mesh=)")
+    dev = resolve(device)
+    t1 = time.perf_counter()
+    backend = _resolve_backend(backend)
+    if pad_shapes is None:
+        pad_shapes = backend in ("dense", "csr")
+    fused, slices = fuse_stacks([p.stack for p in preps])
+    if any(p.lo0 is not None for p in preps):
+        lo0 = np.concatenate([
+            p.lo0 if p.lo0 is not None
+            else np.full(p.n_rows, -np.inf)
+            for p in preps
+        ])
+    else:
+        lo0 = None
+    rel_tol = min(p.rel_tol for p in preps)
+    if pad_shapes:
+        fused, lo0 = pad_stack_to_buckets(fused, lo0)
+    key = (backend, fused.n_graphs, fused.n_actors, fused.n_edges)
+    _CACHE_STATS.record(key)
+    for sink in _CACHE_SINKS:
+        sink.record(key)
+    periods = mcr_batch(
+        fused, backend=backend, rel_tol=rel_tol, lo0=lo0, device=dev,
+    )
+    analysis_s = (time.perf_counter() - t1) / len(preps)
+    return [
+        finish_execution(p, periods[s], analysis_time_s=analysis_s)
+        for p, s in zip(preps, slices)
+    ]
+
+
 def batch_execute(
     app: SDFG,
     bindings,
@@ -853,6 +968,7 @@ def batch_execute(
     pad_shapes: Optional[bool] = None,
     chip_state: Optional[ChipState] = None,
     rate_scale=None,
+    mesh=None,
     device=None,
 ) -> EngineReport:
     """Self-timed steady state of every candidate, in one batched pass.
@@ -875,7 +991,8 @@ def batch_execute(
 
     ``backend`` is ``"auto"`` (the exact device search ``"csr"``),
     ``"csr"``, ``"edges"`` (host numpy) or ``"dense"``; ``device`` is where
-    the analysis runs (``None``: CUDA, raising when there is none).
+    the analysis runs (``None``: CUDA, raising when there is none);
+    ``mesh`` (the sharded solve) is not ported and must be ``None``.
 
     ``pad_shapes`` rounds the stacked (B, n_actors, n_edges) shape up to
     pow2-ish buckets (:func:`pad_stack_to_buckets`) so repeated calls see
@@ -896,6 +1013,7 @@ def batch_execute(
     energy) — degraded candidates rank in the same batched pass as
     healthy ones.
     """
+    no_mesh(mesh, "batch_execute(mesh=)")
     # shortcut edges preserve every cycle ratio but are NOT Eq.-4
     # dependencies, so the starts path must build the plain stack
     prep = prepare_execution(
@@ -931,3 +1049,132 @@ def batch_execute(
         analysis_time_s=time.perf_counter() - t1,
         starts=starts,
     )
+
+
+def batch_throughputs(
+    app: SDFG,
+    bindings,
+    hw: HardwareConfig,
+    orders_list: Optional[OrdersLike] = None,
+    *,
+    backend: str = "auto",
+    rel_tol: float = 1e-8,
+    device=None,
+) -> np.ndarray:
+    """Throughput (1/period) per candidate; zero for dead/acyclic rows."""
+    return batch_execute(
+        app, bindings, hw, orders_list, backend=backend, rel_tol=rel_tol,
+        device=device,
+    ).throughputs
+
+
+# ======================================================================
+# per-component cycle ratios: each app's TRUE steady-state rate
+# ======================================================================
+def weak_components(n_actors: int, src, dst) -> np.ndarray:
+    """Weakly connected component labels of an edge list.
+
+    In a hardware-aware event graph every edge lies on a cycle (data
+    channels pair with buffer back-edges, order edges form tile cycles,
+    self-edges are 1-cycles), so weak components ARE the strongly
+    connected components — and the graph's maximum cycle ratio is the max
+    over its components.  Union-find with path halving; returns (n_actors,)
+    int64 labels compacted to ``0..n_components-1`` (isolated actors get
+    their own label).
+    """
+    parent = np.arange(n_actors, dtype=np.int64)
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = int(parent[x])
+        return x
+
+    for a, b in zip(
+        np.asarray(src, dtype=np.int64).tolist(),
+        np.asarray(dst, dtype=np.int64).tolist(),
+    ):
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[rb] = ra
+    roots = np.fromiter(
+        (find(i) for i in range(n_actors)), dtype=np.int64, count=n_actors
+    )
+    return np.unique(roots, return_inverse=True)[1]
+
+
+def union_component_periods(
+    app: SDFG,
+    binding,
+    hw: HardwareConfig,
+    orders_list: Optional[OrdersLike] = None,
+    *,
+    backend: str = "auto",
+    rel_tol: float = 1e-8,
+    with_metrics: bool = False,
+    chip_state: Optional[ChipState] = None,
+    rate_scale=None,
+    device=None,
+):
+    """Per-component steady-state periods of ONE bound configuration.
+
+    The union period reported by :func:`batch_execute` is the max cycle
+    ratio over the whole chip — conservative for any resident app that
+    does not sit on the chip's critical cycle.  This splits the bound
+    graph into its (weak = strong, see :func:`weak_components`) components
+    and computes every component's exact cycle ratio with ONE masked
+    :func:`~repro_torch.core.maxplus.mcr_batch` call of batch size
+    ``n_components`` on ``device``: row k keeps only component k's edge
+    weights, every other edge is ``-inf`` (the (max,+) neutral element),
+    so row k's MCR is exactly component k's.
+
+    Returns ``(labels, periods)``: ``labels`` is (n_actors,) component ids,
+    ``periods`` (n_components,) each component's period.  An app's true
+    steady-state rate is ``1 / max(periods of components it touches)``.
+    With ``with_metrics=True`` returns ``(labels, periods, metrics)`` where
+    ``metrics`` is the :class:`ChipMetrics` of the same (single-row) build,
+    so callers caching per-component records pay for one stack build only.
+
+    ``chip_state``/``rate_scale`` score the configuration under run-time
+    degradation (see :func:`stack_hardware_aware`); a component whose
+    actors bind any dead tile reports an ``inf`` period.
+    """
+    binding = _as_binding_matrix(binding, app.n_actors)
+    assert binding.shape[0] == 1, "one configuration at a time"
+    dev = resolve(device)
+    metrics = None
+    if with_metrics:
+        stack, metrics = stack_hardware_aware(
+            app, binding, hw, orders_list, relax_shortcuts=True,
+            with_metrics=True, chip_state=chip_state, rate_scale=rate_scale,
+        )
+    else:
+        stack = stack_hardware_aware(
+            app, binding, hw, orders_list, relax_shortcuts=True,
+            chip_state=chip_state, rate_scale=rate_scale,
+        )
+    src, dst = stack.src[0], stack.dst[0]
+    tokens, w = stack.tokens[0], stack.weights[0]
+    live = np.isfinite(w)
+    labels = weak_components(app.n_actors, src[live], dst[live])
+    n_comp = int(labels.max(initial=-1)) + 1
+    backend = _resolve_backend(backend)
+    # row k masks every edge outside component k; shortcut edges never
+    # cross components (they compose real order-cycle paths)
+    mask = labels[src][None, :] == np.arange(max(n_comp, 1))[:, None]
+    comp_stack = EdgeStack(
+        n_actors=app.n_actors,
+        src=np.repeat(src[None, :], max(n_comp, 1), axis=0),
+        dst=np.repeat(dst[None, :], max(n_comp, 1), axis=0),
+        tokens=np.repeat(tokens[None, :], max(n_comp, 1), axis=0),
+        weights=np.where(mask, w[None, :], NEG_INF),
+    )
+    periods = mcr_batch(comp_stack, backend=backend, rel_tol=rel_tol, device=dev)
+    if chip_state is not None and chip_state.dead.any():
+        dead_actors = chip_state.dead[binding[0]]
+        if dead_actors.any():
+            periods = periods.copy()
+            periods[np.unique(labels[dead_actors])] = np.inf
+    if with_metrics:
+        return labels, periods, metrics
+    return labels, periods

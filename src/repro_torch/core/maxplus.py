@@ -43,7 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import no_mesh, resolve
 from ..kernels import maxplus_bellman as kbell
 from ..kernels import ops as kops
 from .sdfg import SDFG
@@ -447,6 +447,7 @@ def mcr_batch(
     lo0: Optional[np.ndarray] = None,
     detect_deadlock: bool = False,
     device=None,
+    devices=None,
 ) -> np.ndarray:
     """Maximum cycle ratio for every row of an :class:`EdgeStack`.
 
@@ -469,8 +470,10 @@ def mcr_batch(
     per relaxation round), ``"dense"`` (float32 max-plus matrix squaring
     on ``device``, K2/K3, looser tolerance) or ``"auto"`` (``"csr"``).
     ``device`` is resolved for every backend, so a call without one
-    raises where there is no CUDA device.
+    raises where there is no CUDA device.  ``devices`` (the sharded
+    solve) is not ported and must be ``None``.
     """
+    no_mesh(devices, "mcr_batch(devices=)")
     dev = resolve(device)
     if backend == "auto":
         backend = "csr"
@@ -567,10 +570,14 @@ def _pack_csr(stack: EdgeStack, lo0: Optional[np.ndarray]) -> Optional[tuple]:
     t_ord = t_flat[order]
 
     # per-row simple-path bound (same construction as _upper_path_bound,
-    # over the filtered edge set — identical values, pads are -inf)
+    # over the filtered edge set), summed left to right: numpy's pairwise
+    # sum groups a row's terms by its length, so isolated actors padded on
+    # at the end (fuse_stacks, pad_stack_to_buckets) would move the bound
+    # by an ulp and the bisection's probes with it; a running sum is
+    # unchanged by trailing zeros, which keeps every row's search local
     max_in = np.full(b * n, NEG_INF)
     max_in[uniq_keys] = np.maximum.reduceat(w_ord, seg_starts)
-    upper = np.clip(max_in.reshape(b, n), 0.0, None).sum(axis=1)
+    upper = np.cumsum(np.clip(max_in.reshape(b, n), 0.0, None), axis=1)[:, -1]
     lo, hi, has_cycle = _bisection_bounds(stack, upper, lo0)
 
     indptr = np.zeros(b * n + 1, dtype=np.int64)
@@ -823,3 +830,24 @@ def throughput_batch(
         ok = np.isfinite(rho) & (rho > 0)
         out[np.asarray(grp)[ok]] = 1.0 / rho[ok]
     return out
+
+
+# ======================================================================
+def throughput(g: SDFG, *, method: str = "howard", device=None) -> float:
+    """Application throughput = 1 / MCM (paper's headline metric).
+
+    ``"howard"`` and ``"binary"`` run on the host; ``"power"`` iterates
+    the float32 max-plus matrix on ``device`` (see
+    :func:`mcm_power_iteration`).
+    """
+    if method == "howard":
+        rho = mcr_howard(g)
+    elif method == "binary":
+        rho = mcr_binary_search(g)
+    elif method == "power":
+        rho = mcm_power_iteration(maxplus_matrix(g), device=device)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    if rho <= 0 or not np.isfinite(rho):
+        return 0.0
+    return 1.0 / rho

@@ -68,7 +68,13 @@ from .binding import (
     bind_spinemap,
     lpt_assign,
 )
-from .engine import batch_execute, project_order_batch
+from ..device import no_mesh
+from .engine import (
+    batch_execute,
+    batch_execute_fused,
+    prepare_execution,
+    project_order_batch,
+)
 from .hardware import ChipState, HardwareConfig
 from .partition import ClusteredSNN
 from .runtime import single_tile_order
@@ -345,8 +351,12 @@ class _BindingSearch:
     stream, history — and exposes it one *scoring request* at a time:
     :meth:`ask` returns the next (pop, rel_tol) batch to score,
     :meth:`tell` consumes the scores and breeds the next generation (or
-    finalizes).  Driven by :func:`optimize_binding_graph`.  The rng draw
-    order and scoring batch contents are bit-for-bit the reference's.
+    finalizes).  Driven by :func:`optimize_binding_graph` one search at a
+    time, or by :func:`optimize_binding_graphs_fused` with MANY searches
+    in lockstep so each tick's scoring requests fuse into a single
+    analysis call.  The rng draw order and scoring batch contents are
+    bit-for-bit the reference's, so a single-search drive reproduces
+    :func:`optimize_binding_graph` exactly.
     """
 
     def __init__(
@@ -642,6 +652,7 @@ def optimize_binding_graph(
     backend: str = "auto",
     chip_state: Optional[ChipState] = None,
     rate_scale=None,
+    mesh=None,
     device=None,
 ) -> OptimizeReport:
     """Graph-level search core: optimize actor-to-tile bindings of ``app``.
@@ -686,8 +697,10 @@ def optimize_binding_graph(
     seeds) so the search budget is not wasted on infeasible rows.
 
     ``backend``/``device`` select where each generation is scored (see
-    :func:`~repro_torch.core.engine.batch_execute`).
+    :func:`~repro_torch.core.engine.batch_execute`); ``mesh`` (the
+    sharded solve) is not ported and must be ``None``.
     """
+    no_mesh(mesh, "optimize_binding_graph(mesh=)")
     search = _BindingSearch(
         app, hw, single_order,
         seed_bindings=seed_bindings,
@@ -723,6 +736,70 @@ def _alive_scores(rep) -> tuple[np.ndarray, np.ndarray]:
         np.where(alive, rep.periods, np.inf),
         np.where(alive, rep.energies, np.inf),
     )
+
+
+def optimize_binding_graphs_fused(
+    tasks: Sequence[dict],
+    *,
+    backend: str = "auto",
+    mesh=None,
+    device=None,
+) -> list[OptimizeReport]:
+    """Run MANY independent binding searches with FUSED scoring.
+
+    ``tasks`` is a sequence of keyword dicts, each exactly the signature
+    of :func:`optimize_binding_graph` minus ``backend``/``device``
+    (positional ``app``/``hw``/``single_order`` under those keys).  The
+    searches run their generations in lockstep: every tick gathers one
+    scoring batch per unfinished search, builds each batch's EdgeStack
+    independently (:func:`~repro_torch.core.engine.prepare_execution`),
+    and solves them all in ONE fused
+    :func:`~repro_torch.core.engine.batch_execute_fused` call on
+    ``device`` — one λ-search's launches and host syncs per tick instead
+    of one per region component per generation.  Each search's rng
+    stream, scoring batches, and ranking are bit-for-bit those of its
+    standalone :func:`optimize_binding_graph` run; only the analysis
+    tolerance can be TIGHTER (the fused solve takes the min over its
+    members).  Requests are fused per (tick, tolerance) group — mixing
+    tolerances would solve some members TIGHTER than their standalone
+    run and could reorder near-tie elites, breaking reproducibility —
+    so a tick where every search is in the same phase (the common case:
+    equal generation counts) is exactly one call.  Reports come back in
+    task order.  ``mesh`` (the sharded solve) is not ported and must be
+    ``None``.
+    """
+    no_mesh(mesh, "optimize_binding_graphs_fused(mesh=)")
+    searches = [
+        _BindingSearch(
+            t["app"], t["hw"], t["single_order"],
+            **{
+                k: v for k, v in t.items()
+                if k not in ("app", "hw", "single_order")
+            },
+        )
+        for t in tasks
+    ]
+    while True:
+        live = [s for s in searches if not s.done]
+        if not live:
+            break
+        groups: dict[float, tuple[list[_BindingSearch], list]] = {}
+        for s in live:
+            pop, rel_tol = s.ask()
+            orders = project_order_batch(s.single_order, pop)
+            prep = prepare_execution(
+                s.app, pop, s.hw, orders, rel_tol=rel_tol,
+                with_energy=True, chip_state=s.chip_state,
+                rate_scale=s.rate_scale,
+            )
+            groups.setdefault(rel_tol, ([], []))
+            groups[rel_tol][0].append(s)
+            groups[rel_tol][1].append(prep)
+        for rel_tol, (members, preps) in groups.items():
+            reports = batch_execute_fused(preps, backend=backend, device=device)
+            for s, rep in zip(members, reports):
+                s.tell(*_alive_scores(rep))
+    return [s.report() for s in searches]
 
 
 def optimize_binding(

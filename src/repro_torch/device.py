@@ -24,3 +24,13 @@ def resolve(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def no_mesh(value, what: str) -> None:
+    """Raise for a ``mesh=``/``devices=`` argument that is not ``None``:
+    the sharded solve is not ported yet."""
+    if value is not None:
+        raise NotImplementedError(
+            f"{what} is the sharded solve, which repro_torch does not port "
+            f"yet (ROADMAP.md queue 1, module 5); pass None"
+        )

@@ -510,6 +510,53 @@ def test_device_backends_match_host_on_the_card():
     np.testing.assert_allclose(on_card.starts, on_host.starts, rtol=1e-4, atol=1e-4)
 
 
+def _ragged_member_stacks():
+    """Three apps' candidate stacks of different (B, n, E), and a small
+    stack whose second row holds a zero-token (deadlocked) cycle."""
+    stacks = []
+    for seed, neurons, rows in ((21, 300, 3), (22, 1200, 5), (23, 700, 2)):
+        snn = small_app(neurons, 12 * neurons, seed=seed)
+        cl = partition_greedy(snn, DYNAP_SE_16)
+        app = sdfg_from_clusters(cl, hw=DYNAP_SE_16)
+        order, _ = single_tile_order(cl, DYNAP_SE_16)
+        b = np.random.default_rng(seed).integers(0, 16, size=(rows, app.n_actors))
+        ob = tengine.project_order_batch(order, b)
+        stacks.append(tengine.stack_hardware_aware(app, b, DYNAP_SE_16, ob,
+                                                   relax_shortcuts=True))
+    src = np.array([[0, 1, 2, 0], [0, 1, 2, 0]])
+    dst = np.array([[1, 2, 0, 0], [1, 2, 0, 0]])
+    tok = np.array([[0, 0, 1, 1], [0, 0, 0, 1]])
+    w = np.array([[2.0, 3.0, 1.5, 0.5], [2.0, 3.0, 1.5, 0.5]])
+    stacks.append(tmp.EdgeStack(n_actors=3, src=src, dst=dst, tokens=tok, weights=w))
+    return stacks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detect_deadlock", [False, True], ids=["k1", "k1w_deadlock"])
+def test_fused_stack_rows_solve_alone_on_the_card(detect_deadlock):
+    """A fused stack of ragged members (-inf edge padding, isolated padded
+    actors) through K1 and K1w: each member's rows equal its own card
+    solve and the host's plain "csr" bit for bit."""
+    dev = _need_cuda()
+    members = _ragged_member_stacks()
+    fused, slices = tengine.fuse_stacks(members)
+    assert np.isneginf(fused.weights).any() and fused.n_actors > members[0].n_actors
+    before = ops.LAUNCHES["relax_round"], ops.LAUNCHES["relax_round_witness"]
+    got = tmp.mcr_batch(fused, device=dev, detect_deadlock=detect_deadlock)
+    assert ops.LAUNCHES["relax_round"] > before[0]
+    assert ops.LAUNCHES["relax_round_witness"] > before[1]
+    host = tmp.mcr_batch(fused, device="cpu", detect_deadlock=detect_deadlock)
+    np.testing.assert_array_equal(got, host)
+    for m, s in zip(members, slices):
+        np.testing.assert_array_equal(got[s], tmp.mcr_batch(
+            m, device=dev, detect_deadlock=detect_deadlock))
+        edges = tmp.mcr_batch(m, backend="edges", device="cpu",
+                              detect_deadlock=detect_deadlock)
+        np.testing.assert_allclose(got[s], edges, rtol=1e-8)
+    if detect_deadlock:
+        assert np.isinf(got[slices[-1]][1]) and np.isfinite(got[slices[-1]][0])
+
+
 # ======================================================================
 # K6: flash attention against its plain version
 # ======================================================================

@@ -123,16 +123,46 @@ def test_subset_scores_and_optimizer_match_reference():
 def test_controller_defaults_to_cuda_and_later_slices_raise(monkeypatch):
     import torch
 
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import maxplus as tmp
+    from repro_torch.core import sdfg as tsdfg
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         trt.AdmissionController(thw.DYNAP_SE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trt.AdmissionController(thw.DYNAP_SE, placement="joint", device="cpu")
-    ctl = trt.AdmissionController(thw.DYNAP_SE, device="cpu")
-    for call in (lambda: ctl.inject_fault(tiles=[0]), lambda: ctl.inject_drift("a", 2.0),
-                 ctl.heal, ctl.remap, ctl.defer_rebalances):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trt.AdmissionController(thw.DYNAP_SE, placement="joint")
+    # the sharded solve (ROADMAP queue 1, module 5) is the later slice
+    mesh = object()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, module 5"):
+        trt.AdmissionController(thw.DYNAP_SE, placement="joint", mesh=mesh, device="cpu")
+    snn = tapps.small_app(150, 1800, seed=3)
+    cl = tpart.partition_greedy(snn, thw.DYNAP_SE)
+    app = tsdfg.sdfg_from_clusters(cl, hw=thw.DYNAP_SE)
+    stack = tmp.stack_graphs([app])
+    binding = np.zeros(app.n_actors, dtype=np.int64)
+    for call in (
+        lambda: tmp.mcr_batch(stack, devices=[mesh], device="cpu"),
+        lambda: tengine.batch_execute(app, binding, thw.DYNAP_SE, mesh=mesh, device="cpu"),
+        lambda: topt.optimize_binding_graph(
+            app, thw.DYNAP_SE, list(range(app.n_actors)),
+            seed_bindings={"s": binding}, mesh=mesh, device="cpu"),
+        lambda: topt.optimize_binding_graphs_fused([], mesh=mesh, device="cpu"),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, module 5"):
             call()
+
+
+def test_core_exports_every_reference_name_or_lists_it():
+    import repro_torch.core as tcore
+
+    for name in rc.__all__:
+        assert name in tcore.__all__ or name in tcore.NOT_PORTED, name
+    for name, where in tcore.NOT_PORTED.items():
+        assert name in rc.__all__ and name not in tcore.__all__, name
+        assert where.startswith("queue 1, module "), where
+    for name in tcore.__all__:
+        assert getattr(tcore, name) is not None
 
 
 def _port_sources():
