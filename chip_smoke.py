@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's compile-and-admit, joint placement and serving,
-SNN execution and LM serving paths on one GPU.
+design-space sweep, sharded λ-search, SNN execution and LM serving paths on
+one GPU.
 
 Run from the repository root:  ``PYTHONPATH=src python3 chip_smoke.py``
 (the script also finds ``src/`` beside itself).  It needs one CUDA device
@@ -41,19 +42,40 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               search's tolerance; where is printed); the largest fused stack
               of phase 5 on the card, each member's rows equal to its own
               solve and within 1e-8 of "edges"
-7. lm_serve   the LM serving path: qwen2-1.5b at full width, float32 params
+7. sweep      the sweep benchmark at full size (benchmarks/sweep.py): the
+              eight Table-1 apps x 4, 9 and 16 tiles x the binders ours,
+              spinemap and pycarl at crossbar 128 on DYNAP_SE through
+              repro_torch.core.sweep on the card (72 candidates, "csr"): every
+              throughput within 1e-6 of per-graph Howard on the host and 1e-8
+              of "edges" on the host, "dense" on the card within 5e-4 (K2,
+              K3), each card Pareto front undominated under "edges"; then
+              the speedup section's walls (MLP-MNIST, 48 candidates, 16
+              tiles: one batched card solve, the host's binary-search and
+              Howard loops); K1 must launch
+8. sharded    mcr_batch(devices=[cuda:0] * k), k = 2, 3, 4, one stream a chunk,
+              on HeartClass's admission stack and the sweep's 72 rows, each
+              twice: every row equal to the unsharded card solve; then phase
+              6's card configuration again with a controller scoring on
+              Mesh((cuda:0, cuda:0)): trajectory, bindings, chip metrics and
+              every ChipMetrics field equal to phase 6's card run
+9. export_pipeline the sweep's LeNet-MNIST graph at 16 tiles through to_json
+              and from_json, solved again on the card: its throughput equal
+              to the sweep's bit for bit; analyze_pipeline for the ten
+              architectures at 2, 4 and 8 stages under the H100 constants
+              (printed, not timed)
+10. lm_serve  the LM serving path: qwen2-1.5b at full width, float32 params
               from a seeded generator, served with the reference's defaults
               (8 requests, 32 prompt + 32 generated tokens, greedy); the
               prefill step on the same prompts (flash kernel, float32) held
               against the serve loop's teacher-forced decode logits (plain
               attention) at the reference's 2e-2, and its last argmax against
               the first generated token
-8. lm_prefill the prefill step in bf16 params (as the reference's prefill cell
+11. lm_prefill the prefill step in bf16 params (as the reference's prefill cell
               lowers it): qwen2-1.5b at (1, 32768) tokens, prefill_32k's
               length with the batch cut from 32 to 1, then starcoder2-3b at
               (1, 8192), whose 4096-token window runs the kernel's window
               branch; each model is freed before the next
-9. snn_crossbar the SNN execution path on HeartClass (24,732 neurons, 2.4M
+12. snn_crossbar the SNN execution path on HeartClass (24,732 neurons, 2.4M
               synapses): (a) simulate_spikes on the card, 256 steps, twice,
               and on the host with the same draws: every neuron's count the
               same in all three (the synaptic sum, spike_input, adds in a
@@ -65,20 +87,20 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               first 4 clusters, equal to the stack's rows bit for bit; the
               whole stacked trajectory bit-identical to the plain version and
               K5 launched 5 x (1 + 4) times
-10. jamba_serve jamba-v0.1-52b cut to one of its four 8-layer blocks, float32
+13. jamba_serve jamba-v0.1-52b cut to one of its four 8-layer blocks, float32
               params from seed 0, served at the reference's defaults; the
               prefill step on the same prompts (one chunk) launches K7 7 times
               (no states pass, no combine) and K6 once; the first Mamba
               layer's prefill output (K7) held against its token-by-token
               decode (plain) within MAMBA_CONTEXT_TOL of the decode output's rms
-11. jamba_prefill the same cut in bf16 params at (1, 32768) tokens,
+14. jamba_prefill the same cut in bf16 params at (1, 32768) tokens,
               prefill_32k's length with the batch cut from 32 to 1: each of
               the 7 Mamba layers launches K7's states-only pass, the combine
               and K7 once each; a second, profiled run splits their device
               time into the three
-12. kernels   every kernel against its plain PyTorch version on the card, with
+15. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
-              2-11: K1-K5 bit-identical; flash attention, also at its largest
+              2-14: K1-K5 bit-identical; flash attention, also at its largest
               float32 call, its largest windowed call and its largest
               dense-model prefill call (qwen2-1.5b's 32k, timed against SDPA
               as the largest is), within kernels/ref.py's ATTN_TOL (per
@@ -93,14 +115,15 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               within half the state's limit (and equal to the full launch's
               states in the same exp mode), the combine within the state's
               limit; spike_input bit-identical to the host's; K1 and K7, launched on
-              two paths each, also timed at each path's largest call; K1 and
+              several paths, also timed at each path's largest call; K1 and
               K5 also checked and timed at the first call of every distinct
               shape of each path (``by_shape``: K5's stacked step and the
-              example's G = 1 call; K1's admission and dense shapes and the
-              10 joint_serving shapes with the most launches, with the
-              launch-weighted ``rule2_ms``)
+              example's G = 1 call; K2's dense and sweep shapes; K1's
+              admission, dense and sweep shapes
+              and the 10 joint_serving and 10 sharded shapes with the most
+              launches, with the launch-weighted ``rule2_ms``)
 
-Launch counts are set to 0 just before each path's phase (2, 3, 5, 7-11) and
+Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-14) and
 read just after, and reported per path; launches made to compare or time
 kernels do not count.
 """
@@ -166,10 +189,10 @@ KEEP_LAST_OF_EQUAL = ("mamba_chunk_scan",)
 BY_PATH = ("relax_round", "relax_round_witness", "mamba_chunk_scan")
 #: kernels also checked and timed at the first call of every distinct shape
 #: of each path
-BY_SHAPE = ("relax_round", "relax_round_witness", "lif_crossbar_step")
+BY_SHAPE = ("relax_round", "relax_round_witness", "lif_crossbar_step", "maxplus_bmm")
 #: paths with hundreds of K1 shapes: only this many, those with the most
 #: launches, are checked and timed by shape
-BY_SHAPE_TOP = {"joint_serving": 10}
+BY_SHAPE_TOP = {"joint_serving": 10, "sharded": 10}
 #: joint_serving: the stress and serving harnesses' defaults
 #: (benchmarks/stress.py, benchmarks/serving.py): tenants drawn at this
 #: scale, the joint search budget, Zipf-1.1 churn drained in windows
@@ -185,6 +208,16 @@ PROFILED_FLUSH = 20
 SMOKE_TILES, SMOKE_TENANTS, SMOKE_EVENTS, SMOKE_FAULTS = 64, 10, 16, 6
 SMOKE_STORM = dict(seed=2, tiles_per_fault=1, heal_after=2.0, p_throttle=0.15,
                    p_drift=0.15, max_dead_frac=0.15)
+#: sweep: the sweep benchmark's sections at full size (benchmarks/sweep.py:
+#: 44-128): the eight apps x these tile counts x binders at crossbar 128 on
+#: DYNAP_SE, then one app's candidates for the speedup walls
+SWEEP_TILES, SWEEP_BINDERS = (4, 9, 16), ("ours", "spinemap", "pycarl")
+SPEEDUP_APP, SPEEDUP_CANDIDATES, SPEEDUP_TILES = "MLP-MNIST", 48, 16
+#: sharded: row chunks over streams of one card, each solve run twice
+SHARD_COUNTS, SHARD_RUNS = (2, 3, 4), 2
+#: export_pipeline: the graph round-tripped, and the pipeline analysis grid
+EXPORT_POINT = ("LeNet-MNIST", 16, "ours")
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_TOKENS = (2, 4, 8), 16, 4096
 #: host calls that wait for the card (syncs, and copies out of it)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpyAsync", "cudaMemcpy")
@@ -247,13 +280,13 @@ def tiles_request(n_clusters: int) -> int:
     return max(1, min(4, n_clusters))
 
 
-def joint_controller(runtime, workloads, hw, n_tenants, device, backend="auto"):
+def joint_controller(runtime, workloads, hw, n_tenants, device, backend="auto", mesh=None):
     """A joint, region-scoped controller with ``n_tenants`` tenants of the
     stress harness registered; returns it, the names and the requests."""
     tenants = workloads.workload_suite(n_tenants, seed=0, scale=JOINT_SCALE)
     ctl = runtime.AdmissionController(
         hw, placement="joint", joint_budget=JOINT_BUDGET, full_rebalance_every=0,
-        backend=backend, device=device)
+        backend=backend, device=device, mesh=mesh)
     requests = {}
     for snn in tenants:
         requests[snn.name] = tiles_request(ctl.register(snn).clustered.n_clusters)
@@ -371,13 +404,17 @@ def main() -> None:
 
     import dataclasses
 
-    from repro_torch.configs import SHAPES, get_arch
-    from repro_torch.core import apps, engine, lif, maxplus, runtime, serving, workloads
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch
+    from repro_torch.core import (apps, engine, explore, export, lif, maxplus, pipeline,
+                                  runtime, serving, workloads)
     from repro_torch.core.hardware import DYNAP_SE, DYNAP_SE_1024, DYNAP_SE_16
-    from repro_torch.core.sdfg import sdfg_from_clusters
+    from repro_torch.core.partition import partition_greedy
+    from repro_torch.core.schedule import build_static_orders
+    from repro_torch.core.sdfg import hardware_aware_sdfg, sdfg_from_clusters
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import maxplus_bellman as kbell
     from repro_torch.launch import serve as tserve
+    from repro_torch.launch.sharding import Mesh
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import mamba as tmamba
     from repro_torch.models.blocks import rms_norm
@@ -464,7 +501,7 @@ def main() -> None:
             launches[k][path] = v
 
     # Every wrapper is spied on: per path, the shapes it was given, and the
-    # inputs of its largest call, on which phase 12 times and checks it.
+    # inputs of its largest call, on which phase 15 times and checks it.
     where = {"path": None, "app": None}
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
@@ -888,6 +925,10 @@ def main() -> None:
           and all(np.array_equal(getattr(mc, f.name), getattr(mh, f.name))
                   for f in dataclasses.fields(mc)),
           "the final placement's component periods or ChipMetrics differ card vs host")
+    # what the sharded phase's meshed replay must equal
+    card_ref = {"traj": card_traj, "placement": placement(card), "metrics": card.chip_metrics(),
+                "metrics_exact": card.chip_metrics(exact=True), "components": (lc, pc, mc),
+                "wall_s": smoke["card_csr"]["wall_s"]}
     # the edges run: "csr" keeps another candidate where scores tie within
     # its tolerance, and the runs part there; so the card's final placement
     # is scored again by the exact host oracle
@@ -945,7 +986,231 @@ def main() -> None:
           "wall_s": time.perf_counter() - t_phase})
     del jctl, smoke, card, host, edges, fused, members
 
-    # -- 7. LM serving path (main path of the LM substrate) --------------
+    # -- 7. the design-space sweep at the sweep benchmark's full size -----
+    t_phase = time.perf_counter()
+    swept, solves = {}, []
+    build_candidates, mcr_batch = explore.build_candidates, maxplus.mcr_batch
+
+    def build_spy(*a, **kw):
+        out = build_candidates(*a, **kw)
+        swept.update(graphs=out[1], aux=out[3])
+        return out
+
+    def solve_spy(stack, **kw):      # throughput_batch's grouped solves
+        solves.append([stack.n_graphs, stack.n_actors, stack.n_edges])
+        return mcr_batch(stack, **kw)
+
+    explore.build_candidates, maxplus.mcr_batch = build_spy, solve_spy
+    sweep_apps = apps.APP_NAMES
+    where.update(path="sweep", app="sweep")
+    reset()
+    rep_sweep = explore.sweep(sweep_apps, tile_counts=SWEEP_TILES, binders=SWEEP_BINDERS,
+                              device=dev)
+    torch.cuda.synchronize()
+    explore.build_candidates, maxplus.mcr_batch = build_candidates, mcr_batch
+    sweep_k1 = ops.LAUNCHES["relax_round"]
+    sweep_syncs = kbell.COUNTS["syncs"]
+    graphs, aux = swept["graphs"], swept["aux"]
+    thr = np.array([p.throughput for p in rep_sweep.points])
+    # the benchmark's bar: per-graph Howard on the host within 1e-6
+    t = time.perf_counter()
+    rhos = np.array([maxplus.mcr_howard(g) for g in graphs])
+    howard_s = time.perf_counter() - t
+    thr_howard = np.where(rhos > 0, 1.0 / np.maximum(rhos, 1e-300), 0.0)
+    t = time.perf_counter()
+    thr_edges = explore.analyze_candidates(graphs, backend="edges", device="cpu")
+    edges_s = time.perf_counter() - t
+    t = time.perf_counter()
+    thr_dense = explore.analyze_candidates(graphs, backend="dense", device=dev)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    check(rep_sweep.n_candidates == len(sweep_apps) * len(SWEEP_TILES) * len(SWEEP_BINDERS)
+          and np.isfinite(thr).all() and (thr > 0).all(),
+          f"the sweep gave {rep_sweep.n_candidates} points or a dead one")
+    check(rel(thr, thr_howard) <= 1e-6, f"sweep vs Howard rel {rel(thr, thr_howard)}")
+    check(rel(thr, thr_edges) <= 1e-8, f"sweep csr vs host edges rel {rel(thr, thr_edges)}")
+    check(rel(thr_dense, thr_edges) <= 5e-4, f"sweep dense vs edges rel {rel(thr_dense, thr_edges)}")
+    check(sweep_k1 > 0, "K1 did not launch in the sweep")
+    # Pareto fronts: "csr" may order two points that tie within 1e-9 apart
+    # from "edges", so each point of the card's front, scored again by the
+    # host's "edges", must stay undominated (within 1e-8) by "edges"' front
+    periods_e = np.where(thr_edges > 0, 1.0 / np.maximum(thr_edges, 1e-300), np.inf)
+    rep_edges = explore.SweepReport(
+        points=[dataclasses.replace(p, throughput=float(te), energy=float(e))
+                for p, te, e in zip(rep_sweep.points, thr_edges,
+                                    aux["dyn_energy"] + aux["idle_per_us"] * periods_e)],
+        build_time_s=rep_sweep.build_time_s, analysis_time_s=edges_s, method="batched")
+    key = {id(p): i for i, p in enumerate(rep_sweep.points)}
+    fronts = {}
+    for app_name in sweep_apps:
+        front, front_e = rep_sweep.pareto_front(app_name), rep_edges.pareto_front(app_name)
+        for p in front:
+            q = rep_edges.points[key[id(p)]]
+            check(not any(f.throughput > q.throughput * (1 + 1e-8)
+                          and f.energy < q.energy * (1 - 1e-8) for f in front_e),
+                  f"{app_name}: a card front point is dominated under edges")
+        fronts[app_name] = {"card": len(front), "edges": len(front_e),
+                            "same_points": [(p.n_tiles, p.binder) for p in front]
+                            == [(p.n_tiles, p.binder) for p in front_e]}
+    # the benchmark's speedup section: one app's candidates, one batched
+    # solve on the card against the host's per-graph loops
+    hw_sp = dataclasses.replace(DYNAP_SE, n_tiles=SPEEDUP_TILES)
+    cl_sp = partition_greedy(apps.build_app(SPEEDUP_APP), hw_sp)
+    app_sp = sdfg_from_clusters(cl_sp, hw=hw_sp)
+    bindings_sp = [explore.BINDERS[b](cl_sp, hw_sp).binding for b in SWEEP_BINDERS]
+    rng = np.random.default_rng(0)
+    while len(bindings_sp) < SPEEDUP_CANDIDATES:
+        bindings_sp.append(rng.integers(0, SPEEDUP_TILES, size=cl_sp.n_clusters))
+    graphs_sp = []
+    for b_sp in bindings_sp:
+        orders_sp, _ = build_static_orders(app_sp, b_sp, hw_sp, iterations=8)
+        graphs_sp.append(hardware_aware_sdfg(app_sp, b_sp, hw_sp, orders_sp))
+    stack_sp = maxplus.stack_graphs(graphs_sp)
+    t = time.perf_counter()
+    rho_card = maxplus.mcr_batch(stack_sp, device=dev)
+    torch.cuda.synchronize()
+    speed = {"batched_card_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    rho_bin = np.array([maxplus.mcr_binary_search(g, tol=1e-6) for g in graphs_sp])
+    speed["binary_search_loop_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rho_how = np.array([maxplus.mcr_howard(g) for g in graphs_sp])
+    speed["howard_loop_s"] = time.perf_counter() - t
+    check(rel(rho_card, rho_how) <= 1e-6, f"speedup section: card vs Howard {rel(rho_card, rho_how)}")
+    read_into("sweep")
+    where.update(path=None, app=None)
+    emit({"phase": "sweep", "apps": len(sweep_apps), "tile_counts": list(SWEEP_TILES),
+          "binders": list(SWEEP_BINDERS), "crossbar": 128, "hw_base": "DYNAP_SE",
+          "candidates": rep_sweep.n_candidates, "build_time_s": rep_sweep.build_time_s,
+          "analysis_time_s": rep_sweep.analysis_time_s, "solves_B_n_E": solves,
+          "vs_howard_max_rel": rel(thr, thr_howard), "vs_edges_max_rel": rel(thr, thr_edges),
+          "dense_vs_edges_max_rel": rel(thr_dense, thr_edges),
+          "howard_loop_s": howard_s, "edges_host_s": edges_s, "dense_card_s": dense_s,
+          "pareto_fronts": fronts, "relax_round_launches": sweep_k1,
+          "host_syncs": sweep_syncs,
+          "speedup": {"app": SPEEDUP_APP, "candidates": len(graphs_sp),
+                      "tiles": SPEEDUP_TILES, "stack_B_n_E": [
+                          stack_sp.n_graphs, stack_sp.n_actors, stack_sp.n_edges],
+                      **speed, "card_vs_howard_max_rel": rel(rho_card, rho_how),
+                      "binary_search_vs_howard_max_rel": rel(rho_bin, rho_how),
+                      "note": "walls of one call each, first call; not a claim"},
+          "launches": dict(ops.LAUNCHES), "wall_s": time.perf_counter() - t_phase})
+    del graphs_sp, stack_sp
+
+    # -- 8. the sharded λ-search on streams of one card -------------------
+    t_phase = time.perf_counter()
+    shard_stacks = {f"{solved['app']} admission": (solved["stack"], solved["lo0"]),
+                    f"sweep, {len(graphs)} rows": (maxplus.stack_graphs(graphs), None)}
+    unsharded = {}
+    for name, (st, lo0) in shard_stacks.items():
+        kbell.reset_counts()
+        t = time.perf_counter()
+        p_one = maxplus.mcr_batch(st, lo0=lo0, device=dev)
+        torch.cuda.synchronize()
+        unsharded[name] = {"periods": p_one, "wall_s": time.perf_counter() - t,
+                           "host_syncs": kbell.COUNTS["syncs"],
+                           "B_n_E": [st.n_graphs, st.n_actors, st.n_edges]}
+    where.update(path="sharded", app="stacks")
+    reset()
+    shard_runs = {name: {"unsharded": {k: v for k, v in u.items() if k != "periods"}}
+                  for name, u in unsharded.items()}
+    for name, (st, lo0) in shard_stacks.items():
+        for k in SHARD_COUNTS:
+            for run in range(SHARD_RUNS):
+                syncs = kbell.COUNTS["syncs"]
+                t = time.perf_counter()
+                p_k = maxplus.mcr_batch(st, lo0=lo0, devices=[dev] * k)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                check(np.array_equal(p_k, unsharded[name]["periods"]),
+                      f"{name}: {k} chunks on streams, run {run}, differ from the unsharded solve")
+                shard_runs[name].setdefault(f"{k}_chunks", []).append(
+                    {"wall_s": wall, "host_syncs": kbell.COUNTS["syncs"] - syncs})
+    # joint_crosscheck's configuration again, every rebalance scored on a
+    # mesh of two streams of the card: equal to that phase's card run
+    where["app"] = "joint_crosscheck"
+    t = time.perf_counter()
+    mesh2 = Mesh((dev, dev))
+    c_mesh, names, requests = joint_controller(runtime, workloads, hw_smoke, SMOKE_TENANTS,
+                                               dev, "csr", mesh=mesh2)
+    _, st_mesh = drain_churn(serving, c_mesh, names, requests, SMOKE_EVENTS)
+    drive_storm(c_mesh, workloads.failure_storm(SMOKE_FAULTS, SMOKE_TILES, drift_apps=names,
+                                                **SMOKE_STORM))
+    torch.cuda.synchronize()
+    mesh_wall = time.perf_counter() - t
+    check(strip(c_mesh) == card_ref["traj"], "the meshed replay's trajectory differs")
+    check(placement(c_mesh) == card_ref["placement"], "the meshed replay's bindings differ")
+    check(c_mesh.chip_metrics() == card_ref["metrics"]
+          and c_mesh.chip_metrics(exact=True) == card_ref["metrics_exact"],
+          "the meshed replay's chip metrics differ")
+    _, _, union, order, binding, _ = c_mesh._resident_union()
+    ob = engine.project_order_batch(order, binding[None, :])
+    rate_scale = c_mesh._union_rate_scale(
+        [c_mesh.artifacts[(n, hw_smoke)] for n in sorted(c_mesh.state.allocated)])
+    lm, pm, mm = engine.union_component_periods(
+        union, binding, hw_smoke, ob, with_metrics=True, chip_state=c_mesh.chip,
+        rate_scale=rate_scale, backend="csr", device=dev)
+    lc, pc, mc = card_ref["components"]
+    check(np.array_equal(lm, lc) and np.array_equal(pm, pc)
+          and all(np.array_equal(getattr(mm, f.name), getattr(mc, f.name))
+                  for f in dataclasses.fields(mc)),
+          "the meshed replay's component periods or ChipMetrics fields differ")
+    sharded_launches = dict(ops.LAUNCHES)
+    read_into("sharded")
+    where.update(path=None, app=None)
+    check(sharded_launches["relax_round"] > 0, "K1 did not launch in the sharded phase")
+    emit({"phase": "sharded", "chunk_counts": list(SHARD_COUNTS), "runs_each": SHARD_RUNS,
+          "stacks": shard_runs, "rows_bit_identical_to_unsharded": True,
+          "meshed_joint_crosscheck": {
+              "mesh": [str(d) for d in mesh2.devices], "wall_s": mesh_wall,
+              "unsharded_card_wall_s": card_ref["wall_s"], "events": len(c_mesh.events),
+              "admitted": st_mesh["admitted"], "trajectory_bindings_metrics_equal": True,
+              "component_periods_and_chip_metrics_fields_equal": True},
+          "launches": sharded_launches, "host_syncs": kbell.COUNTS["syncs"],
+          "wall_s": time.perf_counter() - t_phase})
+    del c_mesh, shard_stacks, unsharded, card_ref
+
+    # -- 9. export and the pipeline analysis (host) ----------------------
+    t_phase = time.perf_counter()
+    i_exp = next(i for i, p in enumerate(rep_sweep.points)
+                 if (p.app, p.n_tiles, p.binder) == EXPORT_POINT)
+    text = export.to_json(graphs[i_exp])
+    g_back = export.from_json(text)
+    thr_back = float(maxplus.throughput_batch([g_back], device=dev)[0])
+    check(export.to_json(g_back) == text, "to_json(from_json(text)) differs from text")
+    check(thr_back == rep_sweep.points[i_exp].throughput,
+          f"the round-tripped graph's throughput {thr_back} differs from the sweep's "
+          f"{rep_sweep.points[i_exp].throughput}")
+    pipes = {}
+    for arch in ARCH_NAMES:
+        for n_st in PIPE_STAGES:
+            r = pipeline.analyze_pipeline(get_arch(arch), n_stages=n_st,
+                                          n_microbatches=PIPE_MICROBATCHES,
+                                          micro_tokens=PIPE_TOKENS)
+            check(math.isfinite(r.period_s) and r.period_s > 0 and r.tokens_per_s > 0,
+                  f"pipeline analysis of {arch} at {n_st} stages: {r}")
+            pipes.setdefault(arch, {})[n_st] = {
+                "period_s": r.period_s, "bubble_frac": r.bubble_frac,
+                "tokens_per_s": r.tokens_per_s, "hbm_fit": r.hbm_fit}
+    emit({"phase": "export_pipeline", "graph": {
+              "point": list(EXPORT_POINT), "actors": g_back.n_actors,
+              "channels": g_back.n_channels, "json_chars": len(text),
+              "dot_lines": export.to_dot(graphs[i_exp]).count("\n") + 1,
+              "throughput_after_round_trip": thr_back, "bit_equal": True},
+          "pipeline": {"constants": {"peak_flops": pipeline.PEAK_FLOPS,
+                                     "link_bytes_per_s": pipeline.LINK_BW,
+                                     "hbm_bytes": pipeline.HBM_BYTES,
+                                     "source": "NVIDIA H100 SXM5 datasheet; model constants"},
+                       "n_microbatches": PIPE_MICROBATCHES, "micro_tokens": PIPE_TOKENS,
+                       "by_arch": pipes},
+          "wall_s": time.perf_counter() - t_phase})
+    del graphs, aux, rep_sweep, rep_edges, g_back
+
+    # -- 10. LM serving path (main path of the LM substrate) --------------
     t_phase = time.perf_counter()
     args = tserve.parse_args([])        # the reference's defaults
     where.update(path="lm_serve", app=args.arch)
@@ -1013,7 +1278,7 @@ def main() -> None:
     del params, res, prefill_logits, fwd, dec
     torch.cuda.empty_cache()
 
-    # -- 8. bf16 prefill at full length ------------------------------------
+    # -- 11. bf16 prefill at full length ------------------------------------
     t_phase = time.perf_counter()
     where["path"] = "lm_prefill"
     reset()
@@ -1053,7 +1318,7 @@ def main() -> None:
           "reduced": "batch 1 of prefill_32k's 32 (qwen2-1.5b); starcoder2-3b at 8192 tokens",
           "launches": dict(ops.LAUNCHES), "wall_s": time.perf_counter() - t_phase})
 
-    # -- 9. SNN execution path: spike recording and the crossbar steps ---
+    # -- 12. SNN execution path: spike recording and the crossbar steps ---
     t_phase = time.perf_counter()
     where.update(path="snn_crossbar", app=SNN_APP)
     reset()
@@ -1139,7 +1404,7 @@ def main() -> None:
           "launches": snn_launches, "wall_s": time.perf_counter() - t_phase})
     del blocks, s0, v0, example, s_k, v_k, s_p, v_p
 
-    # -- 10. jamba's hybrid serving path -----------------------------------
+    # -- 13. jamba's hybrid serving path -----------------------------------
     # one of jamba's four 8-layer blocks: 1 GQA and 7 Mamba mixers, 4 MoE
     # and 4 SwiGLU FFNs, every layer at full width
     t_phase = time.perf_counter()
@@ -1235,7 +1500,7 @@ def main() -> None:
     del params, res, prefill_logits, lp, h_in, out_prefill, out_decode, state
     torch.cuda.empty_cache()
 
-    # -- 11. jamba's bf16 prefill at full length -----------------------------
+    # -- 14. jamba's bf16 prefill at full length -----------------------------
     t_phase = time.perf_counter()
     where.update(path="jamba_prefill", app=cfg.name)
     seq = SHAPES["prefill_32k"]["seq_len"]
@@ -1289,7 +1554,7 @@ def main() -> None:
     del params, tokens
     torch.cuda.empty_cache()
 
-    # -- 12. kernels against their plain versions --------------------------
+    # -- 15. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card
@@ -1355,7 +1620,7 @@ def main() -> None:
             check(tol_ratio <= 1.0, f"{name} is {tol_ratio} times its tolerance")
 
     for name in shape_of:
-        check(name in largest, f"{name} was never called on the card by phases 2-11")
+        check(name in largest, f"{name} was never called on the card by phases 2-14")
 
     def by_path(name, work_of, terms_per_s):
         """Time, bound and launches of ``name`` at each path's largest call."""
@@ -1479,6 +1744,12 @@ def main() -> None:
                max_abs_err(kern_fn(a, b), plain_fn(a, b)),
                (a.numel() + b.numel() + out_numel) * 4, largest[name]["work"],
                MAXPLUS_TERMS_PER_S)
+        if name == "maxplus_bmm":       # launched at many shapes by the sweep's groups
+            kernels[-1]["by_shape"], kernels[-1]["rule2_ms"], _ = by_shape(
+                name, lambda x, y: ((x.numel() + y.numel() + x.shape[0] * x.shape[1]
+                                     * y.shape[2]) * 4, math.prod(x.shape) * y.shape[2]),
+                MAXPLUS_TERMS_PER_S,
+                lambda args, kw: max_abs_err(ops.maxplus_bmm(*args), plain_fn(*args)))
 
     # K6 on the inputs of its largest call (jamba's 32k GQA layer), and
     # checked at its largest float32, windowed and lm_prefill calls

@@ -10,9 +10,10 @@ Pipeline (paper Fig. 2), as in the JAX reference's ``repro.core``:
        joint and region placement, the fault runtime, and the serving
        queue (serving.py) over synthetic tenants (workloads.py)
 
-Every name of the reference's public API that the port has is exported
-here; :data:`NOT_PORTED` maps each one it does not have yet to its item
-of ``ROADMAP.md`` queue 1.
+Every name of the reference's public API is exported here;
+:data:`NOT_PORTED` (now empty) would map one the port did not have to its
+item of ``ROADMAP.md`` queue 1.  ``export`` and ``pipeline`` are
+submodules, as in the reference.
 """
 
 from .apps import APP_NAMES, APP_SPECS, all_apps, build_app, small_app
@@ -47,7 +48,17 @@ from .engine import (
     union_component_periods,
     weak_components,
 )
-from .explore import SubsetScores, candidate_subsets, score_free_tile_subsets
+from .explore import (
+    BINDERS,
+    SubsetScores,
+    SweepPoint,
+    SweepReport,
+    analyze_candidates,
+    build_candidates,
+    candidate_subsets,
+    score_free_tile_subsets,
+    sweep,
+)
 from .hardware import (
     DYNAP_SE,
     DYNAP_SE_9,
@@ -108,6 +119,7 @@ from .schedule import (
     build_static_orders,
     build_static_orders_batch,
     measured_throughput,
+    random_orders,
 )
 from .sdfg import (
     SDFG,
@@ -131,15 +143,7 @@ from .workloads import (
 )
 
 #: Names of the reference's ``repro.core`` that the port does not have
-#: yet, each mapped to its item of ``ROADMAP.md`` queue 1.
-NOT_PORTED = {
-    "BINDERS": "queue 1, module 6",
-    "SweepPoint": "queue 1, module 6",
-    "SweepReport": "queue 1, module 6",
-    "analyze_candidates": "queue 1, module 6",
-    "build_candidates": "queue 1, module 6",
-    "sweep": "queue 1, module 6",
-    "random_orders": "queue 1, module 6",
-}
+#: yet, each mapped to its item of ``ROADMAP.md`` queue 1: none.
+NOT_PORTED: dict[str, str] = {}
 
 __all__ = [k for k in dir() if not k.startswith("_") and k != "NOT_PORTED"]

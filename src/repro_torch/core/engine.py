@@ -41,7 +41,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from .hardware import ChipState, HardwareConfig
-from ..device import no_mesh, resolve
+from ..device import resolve
+from ..launch.sharding import current_mesh, mesh_devices
 from .maxplus import (
     NEG_INF,
     EdgeStack,
@@ -844,8 +845,21 @@ def finish_execution(
 
 
 def _resolve_backend(backend: str) -> str:
-    """Resolve ``"auto"`` to the exact device backend ``"csr"``."""
+    """Resolve ``"auto"`` to the exact device backend ``"csr"`` (which is
+    also the one backend that shards, so a mesh needs no other rule)."""
     return "csr" if backend == "auto" else backend
+
+
+def _mesh_solve(backend: str, mesh) -> tuple[str, list]:
+    """The resolved backend and the devices its solve shards over: the flat
+    device list of the scoring mesh (explicit arg wins, else the ambient
+    :func:`repro_torch.launch.sharding.current_mesh`; ``[]`` when no mesh
+    is active).  A backend other than ``"csr"`` drops the mesh
+    (``mcr_batch`` itself raises for ``devices=`` there)."""
+    backend = _resolve_backend(backend)
+    if backend != "csr":
+        return backend, []
+    return backend, mesh_devices(mesh if mesh is not None else current_mesh())
 
 
 def fuse_stacks(
@@ -918,14 +932,19 @@ def batch_execute_fused(
     per-member results are bit-for-bit the standalone results at that
     tolerance (see :func:`fuse_stacks`).  ``with_starts`` is deliberately
     unsupported — scoring paths never need start vectors.  ``backend``,
-    ``pad_shapes`` and ``device`` are as in :func:`batch_execute`;
-    ``mesh`` (the sharded solve) is not ported and must be ``None``.
+    ``pad_shapes`` and ``device`` are as in :func:`batch_execute`.
+
+    ``mesh`` (or an ambient :func:`repro_torch.launch.sharding.use_mesh`)
+    shards the fused batch axis across the mesh devices — contiguous row
+    chunks, one concurrent ``"csr"`` solve per device and stream, merged
+    on the host.  Results are bit-identical to the single-device solve at
+    the same (tightest-member) tolerance, so device count never changes
+    which candidate wins.
     """
     assert preps, "need at least one prepared execution to fuse"
-    no_mesh(mesh, "batch_execute_fused(mesh=)")
     dev = resolve(device)
     t1 = time.perf_counter()
-    backend = _resolve_backend(backend)
+    backend, devices = _mesh_solve(backend, mesh)
     if pad_shapes is None:
         pad_shapes = backend in ("dense", "csr")
     fused, slices = fuse_stacks([p.stack for p in preps])
@@ -946,6 +965,7 @@ def batch_execute_fused(
         sink.record(key)
     periods = mcr_batch(
         fused, backend=backend, rel_tol=rel_tol, lo0=lo0, device=dev,
+        devices=devices or None,
     )
     analysis_s = (time.perf_counter() - t1) / len(preps)
     return [
@@ -991,8 +1011,10 @@ def batch_execute(
 
     ``backend`` is ``"auto"`` (the exact device search ``"csr"``),
     ``"csr"``, ``"edges"`` (host numpy) or ``"dense"``; ``device`` is where
-    the analysis runs (``None``: CUDA, raising when there is none);
-    ``mesh`` (the sharded solve) is not ported and must be ``None``.
+    the analysis runs (``None``: CUDA, raising when there is none).
+    ``mesh`` (or an ambient :func:`repro_torch.launch.sharding.use_mesh`)
+    shards the candidate batch axis across the mesh devices exactly as in
+    :func:`batch_execute_fused` — bit-identical, merged on the host.
 
     ``pad_shapes`` rounds the stacked (B, n_actors, n_edges) shape up to
     pow2-ish buckets (:func:`pad_stack_to_buckets`) so repeated calls see
@@ -1013,7 +1035,6 @@ def batch_execute(
     energy) — degraded candidates rank in the same batched pass as
     healthy ones.
     """
-    no_mesh(mesh, "batch_execute(mesh=)")
     # shortcut edges preserve every cycle ratio but are NOT Eq.-4
     # dependencies, so the starts path must build the plain stack
     prep = prepare_execution(
@@ -1024,7 +1045,7 @@ def batch_execute(
 
     dev = resolve(device)
     t1 = time.perf_counter()
-    backend = _resolve_backend(backend)
+    backend, devices = _mesh_solve(backend, mesh)
     if pad_shapes is None:
         pad_shapes = backend in ("dense", "csr")
     stack, lo0 = prep.stack, prep.lo0
@@ -1036,6 +1057,7 @@ def batch_execute(
         sink.record(key)
     periods = mcr_batch(
         stack, backend=backend, rel_tol=rel_tol, lo0=lo0, device=dev,
+        devices=devices or None,
     )
     starts = None
     if with_starts:

@@ -43,9 +43,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import no_mesh, resolve
+from ..device import resolve
 from ..kernels import maxplus_bellman as kbell
 from ..kernels import ops as kops
+from ..launch.sharding import row_chunks
 from .sdfg import SDFG
 
 NEG_INF = -math.inf
@@ -470,13 +471,20 @@ def mcr_batch(
     per relaxation round), ``"dense"`` (float32 max-plus matrix squaring
     on ``device``, K2/K3, looser tolerance) or ``"auto"`` (``"csr"``).
     ``device`` is resolved for every backend, so a call without one
-    raises where there is no CUDA device.  ``devices`` (the sharded
-    solve) is not ported and must be ``None``.
+    raises where there is no CUDA device.
+
+    ``devices`` (``"csr"`` only): two or more devices shard the batch
+    axis — contiguous row chunks, chunk k on ``devices[k]`` (a CUDA
+    device on a stream of its own, so one card may repeat), all
+    in flight at once and bit-identical to the unsharded solve; a single
+    device pins the unsharded solve to it.  Any other backend with
+    ``devices`` raises ``ValueError``.
     """
-    no_mesh(devices, "mcr_batch(devices=)")
     dev = resolve(device)
     if backend == "auto":
         backend = "csr"
+    if devices and backend != "csr":
+        raise ValueError(f"devices= requires the 'csr' backend, got {backend!r}")
     if backend == "dense":
         if detect_deadlock:
             raise ValueError("detect_deadlock is not supported by 'dense'")
@@ -490,6 +498,7 @@ def mcr_batch(
         return _mcr_batch_csr(
             stack, max_steps=max_steps, rel_tol=rel_tol, lo0=lo0,
             detect_deadlock=detect_deadlock, device=dev,
+            devices=[resolve(d) for d in devices] if devices else None,
         )
     if backend != "edges":
         raise ValueError(
@@ -596,6 +605,7 @@ def _mcr_batch_csr(
     lo0: Optional[np.ndarray] = None,
     detect_deadlock: bool = False,
     k_probes: Optional[int] = None,
+    devices: Optional[Sequence[torch.device]] = None,
 ) -> np.ndarray:
     """Exact float64 lambda-search on ``device`` (the ``"csr"`` backend).
 
@@ -605,6 +615,17 @@ def _mcr_batch_csr(
     (:func:`repro_torch.kernels.maxplus_bellman.csr_bisect`).  Exact to the
     same ``rel_tol`` contract as ``"edges"``; the two agree to
     bisection-interval width on every row.
+
+    ``devices`` (two or more) shards the batch axis: the rows split into
+    ``len(devices)`` contiguous chunks (:func:`repro_torch.launch.sharding.row_chunks`),
+    each packed alone and solved on its own device and stream with all
+    chunks in flight at once
+    (:func:`repro_torch.kernels.maxplus_bellman.mcr_bisect_device_sharded`).
+    A chunk's rows get the same CSR segments and path bounds as in the
+    whole stack, so device count never changes a result.  A single device
+    in ``devices`` pins the unsharded solve to it.  Chunks are not padded
+    to a common row count (the reference pads them so that each device
+    compiles once; nothing here is compiled per shape).
     """
     b, e = stack.n_graphs, stack.n_edges
     if e == 0:
@@ -614,17 +635,47 @@ def _mcr_batch_csr(
     # multi-probe steps shrink the interval (k+1)x per sweep, so the
     # classic bisection budget over-covers by the same log factor
     steps = max(4, int(math.ceil(max_steps / math.log2(k_probes + 1))) + 1)
-    packed = _pack_csr(stack, lo0)
-    if packed is None:
-        return np.full(b, NEG_INF)
-    arrays, lo, hi, has_cycle = packed
-    lo, hi, has_cycle, deadlocked = kbell.mcr_bisect_device(
-        arrays, lo, hi, has_cycle,
-        n_actors=stack.n_actors, rel_tol=rel_tol, device=device,
-        k_probes=k_probes, max_steps=steps, detect_deadlock=detect_deadlock,
+    devices = list(devices) if devices else []
+    if len(devices) == 1:
+        device = devices[0]
+    n_chunks = min(len(devices), b) if len(devices) > 1 else 1
+    search = dict(n_actors=stack.n_actors, rel_tol=rel_tol, k_probes=k_probes,
+                  max_steps=steps, detect_deadlock=detect_deadlock)
+
+    if n_chunks <= 1:
+        packed = _pack_csr(stack, lo0)
+        if packed is None:
+            return np.full(b, NEG_INF)
+        arrays, lo, hi, has_cycle = packed
+        lo, hi, has_cycle, deadlocked = kbell.mcr_bisect_device(
+            arrays, lo, hi, has_cycle, device=device, **search,
+        )
+        res = np.where(has_cycle, 0.5 * (lo + hi), NEG_INF)
+        return np.where(deadlocked, np.inf, res) if detect_deadlock else res
+
+    res = np.full(b, NEG_INF)
+    dead = np.zeros(b, dtype=bool)
+    chunks, slices, devs = [], [], []
+    for k, sl in enumerate(row_chunks(b, n_chunks)):
+        sub = EdgeStack(
+            n_actors=stack.n_actors, src=stack.src[sl], dst=stack.dst[sl],
+            tokens=stack.tokens[sl], weights=stack.weights[sl],
+        )
+        packed = _pack_csr(sub, lo0[sl] if lo0 is not None else None)
+        if packed is None:
+            continue                       # all-padding rows stay -inf
+        chunks.append(packed)
+        slices.append(sl)
+        devs.append(devices[k])
+    if not chunks:
+        return res
+    lo, hi, has_cycle, deadlocked = kbell.mcr_bisect_device_sharded(
+        chunks, devs, **search,
     )
-    res = np.where(has_cycle, 0.5 * (lo + hi), NEG_INF)
-    return np.where(deadlocked, np.inf, res) if detect_deadlock else res
+    rows = np.r_[tuple(slices)]             # the solved chunks' rows, in order
+    res[rows] = np.where(has_cycle, 0.5 * (lo + hi), NEG_INF)
+    dead[rows] = deadlocked
+    return np.where(dead, np.inf, res) if detect_deadlock else res
 
 
 def _maxplus_fixpoint(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -68,7 +68,6 @@ from .binding import (
     bind_spinemap,
     lpt_assign,
 )
-from ..device import no_mesh
 from .engine import (
     batch_execute,
     batch_execute_fused,
@@ -697,10 +696,13 @@ def optimize_binding_graph(
     seeds) so the search budget is not wasted on infeasible rows.
 
     ``backend``/``device`` select where each generation is scored (see
-    :func:`~repro_torch.core.engine.batch_execute`); ``mesh`` (the
-    sharded solve) is not ported and must be ``None``.
+    :func:`~repro_torch.core.engine.batch_execute`).  ``mesh`` shards every
+    generation's population scoring across the mesh devices
+    (:func:`~repro_torch.core.engine.batch_execute`'s ``mesh=`` path):
+    the per-row λ-search is bit-identical across any device count, so the
+    search trajectory — history, elite, final binding — is identical to
+    the unsharded one at the same ``rng_seed``.
     """
-    no_mesh(mesh, "optimize_binding_graph(mesh=)")
     search = _BindingSearch(
         app, hw, single_order,
         seed_bindings=seed_bindings,
@@ -723,7 +725,7 @@ def optimize_binding_graph(
         rep = batch_execute(
             app, pop, hw, orders, backend=backend, rel_tol=rel_tol,
             with_energy=True, chip_state=chip_state, rate_scale=rate_scale,
-            device=device,
+            mesh=mesh, device=device,
         )
         search.tell(*_alive_scores(rep))
     return search.report()
@@ -765,10 +767,9 @@ def optimize_binding_graphs_fused(
     run and could reorder near-tie elites, breaking reproducibility —
     so a tick where every search is in the same phase (the common case:
     equal generation counts) is exactly one call.  Reports come back in
-    task order.  ``mesh`` (the sharded solve) is not ported and must be
-    ``None``.
+    task order.  ``mesh`` shards each fused solve's batch axis over the
+    mesh devices (bit-identical — see :func:`optimize_binding_graph`).
     """
-    no_mesh(mesh, "optimize_binding_graphs_fused(mesh=)")
     searches = [
         _BindingSearch(
             t["app"], t["hw"], t["single_order"],
@@ -796,7 +797,8 @@ def optimize_binding_graphs_fused(
             groups[rel_tol][0].append(s)
             groups[rel_tol][1].append(prep)
         for rel_tol, (members, preps) in groups.items():
-            reports = batch_execute_fused(preps, backend=backend, device=device)
+            reports = batch_execute_fused(
+                preps, backend=backend, mesh=mesh, device=device)
             for s, rep in zip(members, reports):
                 s.tell(*_alive_scores(rep))
     return [s.report() for s in searches]

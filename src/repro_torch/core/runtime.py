@@ -61,8 +61,8 @@ Batched scoring — admission, every rebalance generation, component
 metrics — runs on the controller's ``device`` with its analysis
 ``backend`` (``"auto"``: the exact float64 λ-search ``"csr"``, kernel K1
 on the card); the final admitted throughput is Howard's exact MCR on the
-host, as in the reference.  The sharded scoring mesh (``mesh=``) is not
-ported yet and must be ``None``.
+host, as in the reference.  A scoring mesh (``mesh=``) shards every
+rebalance's population scoring across its devices, bit-identically.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ from typing import Optional, Union
 import numpy as np
 
 from .binding import BindingResult, LoadWeights, bind_ours
-from ..device import no_mesh, resolve
+from ..device import resolve
 from .engine import (
     CompileCacheStats,
     batch_execute,
@@ -542,8 +542,10 @@ class AdmissionController:
     ``backend`` (``"auto"`` = the exact device search ``"csr"``, or
     ``"edges"``/``"dense"``) select where every batched score of the
     controller runs: admissions, rebalance generations, component
-    metrics.  ``mesh`` (the sharded scoring mesh) is not ported yet and
-    must be ``None``.
+    metrics.  ``mesh`` (a :class:`repro_torch.launch.sharding.Mesh`)
+    shards every rebalance's population scoring across its devices,
+    bit-identical to the unsharded run; ``None`` leaves it unsharded (an
+    ambient ``use_mesh`` of the calling thread still applies).
     """
 
     def __init__(
@@ -576,8 +578,11 @@ class AdmissionController:
                 f"unknown objective {objective!r}; "
                 f"have ('period', 'energy', 'pareto')"
             )
-        no_mesh(mesh, "AdmissionController(mesh=)")
         self.device = resolve(device)
+        # scoring mesh: shards every rebalance's population scoring across
+        # its devices (bit-identical to single-device — see
+        # optimize_binding_graph's mesh= contract); None = unsharded
+        self.mesh = mesh
         self.backend = backend
         self.hw = hw
         # mutable chip degradation state (dead tiles, link throttles,
@@ -1657,6 +1662,7 @@ class AdmissionController:
                 allowed_tiles=footprint, objective=self.objective,
                 chip_state=self.chip,
                 rate_scale=self._union_rate_scale(arts),
+                mesh=self.mesh,
                 backend=self.backend,
                 device=self.device,
             )
@@ -1875,7 +1881,7 @@ class AdmissionController:
             contexts.append(ctx)
         with record_cache_stats(self.cache_stats):
             reps = optimize_binding_graphs_fused(
-                tasks, backend=self.backend, device=self.device,
+                tasks, backend=self.backend, mesh=self.mesh, device=self.device,
             )
         for (comp, order, offsets), rep in zip(contexts, reps):
             self._apply_component_result(comp, order, offsets, rep)
@@ -1982,7 +1988,7 @@ class AdmissionController:
         single_order = task.pop("single_order")
         with record_cache_stats(self.cache_stats):
             rep = optimize_binding_graph(
-                app, hw, single_order, backend=self.backend,
+                app, hw, single_order, mesh=self.mesh, backend=self.backend,
                 device=self.device, **task
             )
         self._apply_component_result(names, order, offsets, rep)

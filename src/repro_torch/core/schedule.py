@@ -465,6 +465,18 @@ def build_static_orders_batch(
     return orders
 
 
+def random_orders(
+    app: SDFG, binding: np.ndarray, hw: HardwareConfig, *, seed: int = 0
+) -> list[list[int]]:
+    """Arbitrary per-tile orders (SpiNeMap/PyCARL execute clusters randomly)."""
+    rng = np.random.default_rng(seed)
+    orders: list[list[int]] = []
+    for tile in range(hw.n_tiles):
+        actors = np.flatnonzero(np.asarray(binding) == tile)
+        orders.append([int(a) for a in rng.permutation(actors)])
+    return orders
+
+
 def measured_throughput(
     app: SDFG,
     binding: np.ndarray,

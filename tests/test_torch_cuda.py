@@ -557,6 +557,46 @@ def test_fused_stack_rows_solve_alone_on_the_card(detect_deadlock):
         assert np.isinf(got[slices[-1]][1]) and np.isfinite(got[slices[-1]][0])
 
 
+def _candidate_stack(seed, neurons, rows):
+    snn = small_app(neurons, 12 * neurons, seed=seed)
+    cl = partition_greedy(snn, DYNAP_SE_16)
+    app = sdfg_from_clusters(cl, hw=DYNAP_SE_16)
+    order, _ = single_tile_order(cl, DYNAP_SE_16)
+    b = np.random.default_rng(seed).integers(0, 16, size=(rows, app.n_actors))
+    ob = tengine.project_order_batch(order, b)
+    return tengine.stack_hardware_aware(app, b, DYNAP_SE_16, ob, relax_shortcuts=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neurons,rows", [(300, 13), (1200, 64)])
+def test_sharded_solve_on_streams_of_one_card(monkeypatch, neurons, rows):
+    """Row chunks on streams of one card (k dividing B or not), each run
+    twice, equal the unsharded card solve bit for bit; every chunk's K1
+    launches go to a stream of its own, not the default stream."""
+    dev = _need_cuda()
+    stack = _candidate_stack(neurons, neurons, rows)
+    ref = tmp.mcr_batch(stack, device=dev)
+    np.testing.assert_array_equal(ref, tmp.mcr_batch(stack, device="cpu"))
+    streams = []
+    stream_of = ops._stream
+
+    def spy(t):
+        streams.append(stream_of(t))
+        return streams[-1]
+
+    monkeypatch.setattr(ops, "_stream", spy)
+    default = torch.cuda.default_stream(dev).cuda_stream
+    for k in (2, 3, 4, 7):
+        for _ in range(2):
+            streams.clear()
+            got = tmp.mcr_batch(stack, devices=[dev] * k)
+            np.testing.assert_array_equal(got, ref)
+            assert len(set(streams)) == k and default not in streams
+    dd = tmp.mcr_batch(stack, device=dev, detect_deadlock=True)
+    np.testing.assert_array_equal(
+        tmp.mcr_batch(stack, devices=[dev] * 3, detect_deadlock=True), dd)
+
+
 # ======================================================================
 # K6: flash attention against its plain version
 # ======================================================================

@@ -6,10 +6,12 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core as rc
 
 import repro_torch.core as tc
+from repro_torch.launch.sharding import Mesh
 
 HW64 = dataclasses.replace(rc.DYNAP_SE, n_tiles=64)
 THW64 = dataclasses.replace(tc.DYNAP_SE, n_tiles=64)
@@ -173,9 +175,14 @@ def test_csr_rows_solve_alone_whatever_the_padding(seed):
 def test_batch_execute_fused_matches_reference():
     r_preps, t_preps = _preps(rc, True), _preps(tc, True)
     want = rc.batch_execute_fused(r_preps, backend="edges")
+    mesh = Mesh((torch.device("cpu"),) * 2)
     for backend in ("edges", "csr"):
         got = tc.batch_execute_fused(t_preps, backend=backend, device="cpu")
-        for g, w, p in zip(got, want, t_preps):
+        # a mesh shards "csr" bit-identically and is dropped by "edges"
+        meshed = tc.batch_execute_fused(t_preps, backend=backend, mesh=mesh, device="cpu")
+        for g, m, w, p in zip(got, meshed, want, t_preps):
+            np.testing.assert_array_equal(m.periods, g.periods)
+            np.testing.assert_array_equal(m.energies, g.energies)
             assert g.periods.shape == (p.n_rows,)
             if backend == "edges":
                 np.testing.assert_array_equal(g.periods, w.periods)
@@ -183,8 +190,6 @@ def test_batch_execute_fused_matches_reference():
             else:
                 np.testing.assert_allclose(g.periods, w.periods, rtol=1e-8)
                 np.testing.assert_allclose(g.energies, w.energies, rtol=1e-8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tc.batch_execute_fused(t_preps, backend="edges", mesh=object(), device="cpu")
 
 
 # -- optimizer -------------------------------------------------------------
@@ -310,8 +315,8 @@ def test_joint_controller_objectives_match_reference():
 
 
 def test_joint_controller_arguments():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tc.AdmissionController(THW64, placement="joint", mesh=object(), device="cpu")
+    mesh = Mesh((torch.device("cpu"),) * 2)
+    assert tc.AdmissionController(THW64, placement="joint", mesh=mesh, device="cpu").mesh is mesh
     with pytest.raises(ValueError):
         tc.AdmissionController(THW64, placement="joint", objective="x", device="cpu")
     ctl = tc.AdmissionController(THW64, placement="joint", device="cpu")

@@ -126,31 +126,38 @@ def test_controller_defaults_to_cuda_and_later_slices_raise(monkeypatch):
     from repro_torch.core import engine as tengine
     from repro_torch.core import maxplus as tmp
     from repro_torch.core import sdfg as tsdfg
+    from repro_torch.launch.sharding import Mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         trt.AdmissionController(thw.DYNAP_SE)
     with pytest.raises(RuntimeError, match="CUDA"):
         trt.AdmissionController(thw.DYNAP_SE, placement="joint")
-    # the sharded solve (ROADMAP queue 1, module 5) is the later slice
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, module 5"):
-        trt.AdmissionController(thw.DYNAP_SE, placement="joint", mesh=mesh, device="cpu")
+    # the sharded solve is ported: every entry point takes a mesh, and
+    # devices= with a backend other than "csr" raises
+    cpu = torch.device("cpu")
+    mesh = Mesh((cpu, cpu))
+    assert trt.AdmissionController(thw.DYNAP_SE, placement="joint", mesh=mesh,
+                                   device="cpu").mesh is mesh
     snn = tapps.small_app(150, 1800, seed=3)
     cl = tpart.partition_greedy(snn, thw.DYNAP_SE)
     app = tsdfg.sdfg_from_clusters(cl, hw=thw.DYNAP_SE)
-    stack = tmp.stack_graphs([app])
+    stack = tmp.stack_graphs([app, app, app])
     binding = np.zeros(app.n_actors, dtype=np.int64)
-    for call in (
-        lambda: tmp.mcr_batch(stack, devices=[mesh], device="cpu"),
-        lambda: tengine.batch_execute(app, binding, thw.DYNAP_SE, mesh=mesh, device="cpu"),
-        lambda: topt.optimize_binding_graph(
-            app, thw.DYNAP_SE, list(range(app.n_actors)),
-            seed_bindings={"s": binding}, mesh=mesh, device="cpu"),
-        lambda: topt.optimize_binding_graphs_fused([], mesh=mesh, device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, module 5"):
-            call()
+    unsharded = tmp.mcr_batch(stack, device="cpu")
+    np.testing.assert_array_equal(tmp.mcr_batch(stack, devices=[cpu] * 2, device="cpu"),
+                                  unsharded)
+    np.testing.assert_array_equal(
+        tengine.batch_execute(app, binding, thw.DYNAP_SE, mesh=mesh, device="cpu").periods,
+        tengine.batch_execute(app, binding, thw.DYNAP_SE, device="cpu").periods)
+    rep = topt.optimize_binding_graph(
+        app, thw.DYNAP_SE, list(range(app.n_actors)), seed_bindings={"s": binding},
+        population=4, generations=1, mesh=mesh, device="cpu")
+    assert np.isfinite(rep.period)
+    assert topt.optimize_binding_graphs_fused([], mesh=mesh, device="cpu") == []
+    for backend in ("edges", "dense"):
+        with pytest.raises(ValueError, match="csr"):
+            tmp.mcr_batch(stack, backend=backend, devices=[cpu] * 2, device="cpu")
 
 
 def test_core_exports_every_reference_name_or_lists_it():
