@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's compile-and-admit, joint placement and serving,
-design-space sweep, sharded λ-search, SNN execution and LM serving paths on
-one GPU.
+design-space sweep, sharded λ-search, SNN execution, LM serving and LM
+training paths on one GPU.
 
 Run from the repository root:  ``PYTHONPATH=src python3 chip_smoke.py``
 (the script also finds ``src/`` beside itself).  It needs one CUDA device
@@ -98,12 +98,33 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               the 7 Mamba layers launches K7's states-only pass, the combine
               and K7 once each; a second, profiled run splits their device
               time into the three
-15. kernels   every kernel against its plain PyTorch version on the card, with
+15. train     the trainer's main path: launch.train.main at its defaults
+              (qwen2-1.5b at full width and depth, batch 8 x seq 256 from
+              TokenStream(seed 0), float32 params and moments, remat "full",
+              lr 1e-3), 4 steps of its own loop: losses finite, step 1's
+              within TRAIN_LOSS0_TOL of ln(vocab); every layer of every
+              gradient leaf finite and not all zero; K6 launched 2 x 28 times
+              a step (each GQA layer's forward, and again in remat's
+              recompute; the backward is the plain recompute); step wall
+              (data excluded), tokens/s, peak memory beside its reckoning, the
+              card's busy share in the profiled last step
+16. train_crosscheck reduced qwen2-1.5b and reduced jamba from the same
+              params and batch on the card (K6; the states pass, the combine
+              and K7) and the host (the plain versions): loss within 1e-5,
+              every gradient leaf within ref.TRAIN_GRAD_SCALE of
+              ref.grad_excess (ATTN_TOL's limits, the leaf as the row); one
+              int8-moment AdamW update on both, every q equal except within
+              INT8_BOUNDARY_ULPS of a rounding boundary; the same gradient
+              twice on the card (the leaves that part, if any, are named);
+              the reduced restart: 6 straight steps twice, and 3 steps, a
+              checkpoint and 3 resumed steps
+17. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
-              2-14: K1-K5 bit-identical; flash attention, also at its largest
-              float32 call, its largest windowed call and its largest
+              2-16: K1-K5 bit-identical; flash attention, also at its largest
+              float32 call, its largest windowed call, its largest
               dense-model prefill call (qwen2-1.5b's 32k, timed against SDPA
-              as the largest is), within kernels/ref.py's ATTN_TOL (per
+              as the largest is) and its largest train call (with the time
+              of the plain backward recompute), within kernels/ref.py's ATTN_TOL (per
               element one rounding step of the output type plus 2^-14 of its
               row's root mean square); all four flash comparisons are
               printed before any is checked; each flash call also timed
@@ -123,7 +144,7 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               and the 10 joint_serving and 10 sharded shapes with the most
               launches, with the launch-weighted ``rule2_ms``)
 
-Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-14) and
+Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-16) and
 read just after, and reported per path; launches made to compare or time
 kernels do not count.
 """
@@ -131,12 +152,16 @@ kernels do not count.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -218,6 +243,21 @@ SHARD_COUNTS, SHARD_RUNS = (2, 3, 4), 2
 #: export_pipeline: the graph round-tripped, and the pipeline analysis grid
 EXPORT_POINT = ("LeNet-MNIST", 16, "ours")
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_TOKENS = (2, 4, 8), 16, 4096
+#: train: qwen2-1.5b at full width and depth through launch.train.main at its
+#: defaults (batch 8, seq 256, float32 params and moments, remat "full" from
+#: the config, lr 1e-3), this many steps; the last one under torch.profiler
+TRAIN_ARCH, TRAIN_STEPS, PROFILED_TRAIN_STEP = "qwen2-1.5b", 4, 3
+#: step 1's loss at random init lies within this of ln(vocab): the logits of
+#: a normalised stream against 0.02-scale tied embeddings spread by about
+#: 0.8, which adds about 0.3 to the logsumexp
+TRAIN_LOSS0_TOL = 1.0
+#: train_crosscheck: reduced models on one batch of (2, 64) tokens (two of
+#: jamba's 32-token chunks), and the restart's steps
+CROSS_BATCH, CROSS_SEQ, RESTART_STEPS = 2, 64, 6
+#: an int8 moment's q may differ card and host only where the value it
+#: rounds lies within this many of its ulps of a rounding boundary (the
+#: value's own ulp, and its block scale's)
+INT8_BOUNDARY_ULPS = 2
 #: host calls that wait for the card (syncs, and copies out of it)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpyAsync", "cudaMemcpy")
@@ -404,21 +444,26 @@ def main() -> None:
 
     import dataclasses
 
-    from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch, reduced
     from repro_torch.core import (apps, engine, explore, export, lif, maxplus, pipeline,
                                   runtime, serving, workloads)
     from repro_torch.core.hardware import DYNAP_SE, DYNAP_SE_1024, DYNAP_SE_16
     from repro_torch.core.partition import partition_greedy
     from repro_torch.core.schedule import build_static_orders
     from repro_torch.core.sdfg import hardware_aware_sdfg, sdfg_from_clusters
+    from repro_torch.data import DataConfig, TokenStream
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import maxplus_bellman as kbell
     from repro_torch.launch import serve as tserve
     from repro_torch.launch.sharding import Mesh
     from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
     from repro_torch.models import mamba as tmamba
     from repro_torch.models.blocks import rms_norm
     from repro_torch.models import transformer as ttf
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import adamw as tadamw
+    from repro_torch.tree import tree_leaves, tree_map
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -548,7 +593,7 @@ def main() -> None:
         table[key] = kept or {
             "work": work(name, shape), "path": where["path"], "app": where["app"],
             "shape": shape, "kwargs": dict(kwargs), "args": tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args),
         }
         return table[key]
 
@@ -571,8 +616,8 @@ def main() -> None:
                         keep_if_larger(flash_largest, "float32", name, shape, args, kwargs)
                     if kwargs.get("window", 0) > 0:
                         keep_if_larger(flash_largest, "windowed", name, shape, args, kwargs)
-                    if where["path"] == "lm_prefill":
-                        keep_if_larger(flash_largest, "lm_prefill", name, shape, args, kwargs)
+                    if where["path"] in ("lm_prefill", "train"):
+                        keep_if_larger(flash_largest, where["path"], name, shape, args, kwargs)
             return orig(*args, **kwargs)
 
         setattr(ops, name, call)
@@ -1554,7 +1599,265 @@ def main() -> None:
     del params, tokens
     torch.cuda.empty_cache()
 
-    # -- 15. kernels against their plain versions --------------------------
+    # -- 15. training on one device (the trainer's main path) --------------
+    # launch.train.main's own loop at its defaults: a wrapper around the step
+    # that make_train_step returns times each step (data excluded), counts
+    # its K6 launches and profiles the last (host_split: its wall split into
+    # torch's host time and the rest, and the card's busy share; the data
+    # thread runs beside it); a wrapper around loss_and_grads
+    # checks every layer of every gradient leaf on the card; a wrapper around
+    # FlashAttentionFn's backward times the plain recompute with CUDA events
+    t_phase = time.perf_counter()
+    train_cfg = get_arch(TRAIN_ARCH)
+    train_argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    train_args = ttrain.parse_args(train_argv)
+    check(train_cfg.remat == "full" and train_args.opt_dtype == "float32"
+          and (train_args.batch, train_args.seq_len) == (8, 256),
+          "train.main's defaults are not batch 8 x seq 256, float32 moments, remat full")
+    where.update(path="train", app=train_cfg.name)
+    step_rows, grad_ok, bwd_events, profiled = [], [], [], {}
+    leaf_names, n_params = [], []
+    make_train_step, loss_and_grads = tsteps.make_train_step, tsteps.loss_and_grads
+    flash_backward = ops.FlashAttentionFn.backward
+
+    def leaf_rows(tree, prefix=""):
+        """(name, rows) of every leaf in tree order: one row a layer of a
+        stacked leaf, one row for any other."""
+        for k in sorted(tree):
+            name, v = f"{prefix}/{k}", tree[k]
+            if isinstance(v, dict):
+                yield from leaf_rows(v, name)
+            else:
+                yield name, (v.flatten(1) if name.startswith("/stack") else v.reshape(1, -1))
+
+    def checked_grads(params, batch, cfg):
+        loss, grads = loss_and_grads(params, batch, cfg)
+        rows = list(leaf_rows(grads))
+        if not leaf_names:
+            leaf_names.extend((name, i) for name, r in rows for i in range(r.shape[0]))
+            n_params.append(sum(g.numel() for g in tree_leaves(grads)))
+        # finite and not all zero, one flag a layer of a leaf; read after the run
+        grad_ok.append(torch.cat([torch.isfinite(r).all(1) & (r != 0).any(1) for _, r in rows]))
+        return loss, grads
+
+    def timed_backward(ctx, d_o):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = flash_backward(ctx, d_o)
+        b.record()
+        bwd_events.append((a, b))
+        return out
+
+    def timed_make(*a, **kw):
+        step_fn = make_train_step(*a, **kw)
+
+        def step(params, opt_state, batch):
+            i, k6 = len(step_rows), ops.LAUNCHES["flash_attention"]
+            bwd_events.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i != PROFILED_TRAIN_STEP:
+                out = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            else:
+                out, split = host_split(lambda: step_fn(params, opt_state, batch))
+                wall = split["wall_s"]
+                profiled.update(step=i, **split)
+            step_rows.append({
+                "step": i, "wall_s": wall, "profiled": i == PROFILED_TRAIN_STEP,
+                "k6_launches": ops.LAUNCHES["flash_attention"] - k6,
+                "k6_backward_recompute_calls": len(bwd_events),
+                "k6_backward_recompute_ms": sum(x.elapsed_time(y) for x, y in bwd_events)})
+            return out
+
+        return step
+
+    tsteps.make_train_step, tsteps.loss_and_grads = timed_make, checked_grads
+    ops.FlashAttentionFn.backward = staticmethod(timed_backward)
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(train_out):
+            losses = ttrain.main(train_argv, device=dev)
+    finally:
+        tsteps.make_train_step, tsteps.loss_and_grads = make_train_step, loss_and_grads
+        ops.FlashAttentionFn.backward = staticmethod(flash_backward)
+    train_peak = torch.cuda.max_memory_allocated()
+    train_launches = dict(ops.LAUNCHES)
+    read_into("train")
+    where.update(path=None, app=None)
+    ok = torch.stack(grad_ok).cpu()
+    bad = sorted({leaf_names[j] for j in (~ok).nonzero()[:, 1].tolist()})
+    check(not bad, f"gradients that are not finite or all zero (leaf, layer): {bad[:10]}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train losses {losses}")
+    ln_vocab = math.log(train_cfg.vocab)
+    check(abs(losses[0] - ln_vocab) <= TRAIN_LOSS0_TOL,
+          f"step 1's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of ln(vocab) {ln_vocab}")
+    # K6 per step: each GQA layer's forward, and again in remat's recompute of
+    # the layer in the backward; the backward itself is the plain recompute
+    k6_expected = 2 * train_cfg.n_layers
+    check(all(r["k6_launches"] == k6_expected and r["k6_backward_recompute_calls"]
+              == train_cfg.n_layers for r in step_rows),
+          f"K6 launches a step {[r['k6_launches'] for r in step_rows]}, not {k6_expected}")
+    timed_walls = [r["wall_s"] for r in step_rows[1:] if not r["profiled"]]
+    step_s = statistics.mean(timed_walls)
+    tokens = train_args.batch * train_args.seq_len
+    n = n_params[0]
+    waited = [float(m) for m in re.findall(r"waited ([0-9.]+)s for data", train_out.getvalue())]
+    emit({"phase": "train", "arch": train_cfg.name, "layers": train_cfg.n_layers,
+          "params": n, "params_dtype": "float32", "opt_dtype": train_args.opt_dtype,
+          "activation_dtype": str(train_cfg.activation_dtype), "remat": train_cfg.remat,
+          "batch": train_args.batch, "seq_len": train_args.seq_len, "steps": TRAIN_STEPS,
+          "losses": losses, "ln_vocab": ln_vocab,
+          "step_wall_s": step_s, "step_walls_s": [r["wall_s"] for r in step_rows],
+          "step_wall_from": "mean of the unprofiled steps after the first; data excluded",
+          "tokens_per_s": tokens / step_s, "data_wait_s": waited,
+          "k6_launches_per_step": [r["k6_launches"] for r in step_rows],
+          "k6_launches_expected": k6_expected,
+          "k6_backward_recompute_ms_per_step": [r["k6_backward_recompute_ms"] for r in step_rows],
+          "grad_rows_checked": len(leaf_names), "profiled_step": profiled,
+          "peak_gb": train_peak / 1e9,
+          "memory_reckoning_gb": {
+              "params": 4 * n / 1e9, "grads": 4 * n / 1e9, "moments_m_v": 8 * n / 1e9,
+              "update_outputs": 12 * n / 1e9,
+              "logits": tokens * train_cfg.vocab * 4 / 1e9,
+              "note": "params, grads and two float32 moments, and the functional "
+                      "update's new params and moments while the old ones live; the "
+                      "logits and their gradient come on top"},
+          "train_log": train_out.getvalue().splitlines(),
+          "launches": train_launches, "wall_s": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+
+    # -- 16. training: card against host at reduced size -----------------------
+    t_phase = time.perf_counter()
+    where["path"] = "train_crosscheck"
+    reset()
+    cross = {}
+    for arch in (TRAIN_ARCH, JAMBA):
+        rcfg = reduced(get_arch(arch))
+        where["app"] = rcfg.name
+        host_p = ttf.init_params(rcfg, torch.Generator().manual_seed(0))
+        card_p = tree_map(lambda t: t.to(dev), host_p)
+        tb = TokenStream(DataConfig(vocab=rcfg.vocab, seq_len=CROSS_SEQ,
+                                    global_batch=CROSS_BATCH)).batch(0)
+        host_b = {k: torch.as_tensor(v) for k, v in tb.items()}
+        before = dict(ops.LAUNCHES)
+        card_loss, card_g = tsteps.loss_and_grads(card_p, {k: v.to(dev) for k, v in host_b.items()},
+                                                  rcfg)
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES if ops.LAUNCHES[k] > before[k]}
+        host_loss, host_g = tsteps.loss_and_grads(host_p, host_b, rcfg)
+        ratios = {name: ref.grad_excess(c.cpu(), h, ref.TRAIN_GRAD_SCALE) for (name, _), c, h in zip(
+            leaf_rows(host_g), tree_leaves(card_g), tree_leaves(host_g))}
+        bad = [name for name, r in leaf_rows(card_g)
+               if not bool(torch.isfinite(r).all() and (r != 0).any(1).all())]
+        loss_rel = abs(float(card_loss) - float(host_loss)) / abs(float(host_loss))
+        n_mamba = sum(r * sum(s.mixer == "mamba" for s in specs) for r, specs in rcfg.stacks)
+        expected = {"flash_attention": rcfg.n_layers - n_mamba}
+        if n_mamba:
+            expected.update({k: n_mamba for k in ("mamba_chunk_states", "mamba_chunk_combine",
+                                                  "mamba_chunk_scan")})
+        worst = max(ratios, key=ratios.get)
+        cross[rcfg.name] = {"loss_card": float(card_loss), "loss_host": float(host_loss),
+                            "loss_rel_err": loss_rel, "grad_tol_ratio_max": ratios[worst],
+                            "grad_tol_ratio_worst_leaf": worst, "grad_leaves": len(ratios),
+                            "launches": launched}
+        check(launched == expected, f"{rcfg.name}: launched {launched}, not {expected}")
+        check(not bad, f"{rcfg.name}: card gradients not finite or a layer all zero in {bad}")
+        check(loss_rel <= 1e-5, f"{rcfg.name}: card loss {float(card_loss)} against host "
+                                f"{float(host_loss)}")
+        check(ratios[worst] <= 1.0, f"{rcfg.name}: gradient {worst} is {ratios[worst]} times "
+                                    f"its tolerance")
+        if arch == TRAIN_ARCH:
+            dense = (host_p, card_p, host_g, rcfg, host_b)
+        del card_p, card_g, host_g
+    # one int8-moment update from the same state and gradients on both
+    host_p, card_p, host_g, rcfg, host_b = dense
+    opt8 = AdamWConfig(lr=1e-3, state_dtype="int8")
+    state = adamw_update(host_p, host_g, adamw_init(host_p, opt8), opt8)[1]
+    new_host = adamw_update(host_p, host_g, state, opt8)
+    new_card = adamw_update(card_p, tree_map(lambda t: t.to(dev), host_g),
+                            tree_map(lambda t: t.to(dev), state), opt8)
+    # the float32 values the int8 update rounds, on the host: the same
+    # update of the decoded moments with float32 state
+    is_q = tadamw._is_moment_leaf
+    decoded = {"step": state["step"], **{kind: tree_map(
+        lambda m, p, kind=kind: tadamw._moment_read(m, p.shape, opt8, kind=kind),
+        state[kind], host_p, is_leaf=is_q) for kind in ("m", "v")}}
+    f32 = adamw_update(host_p, host_g, decoded, dataclasses.replace(opt8, state_dtype="float32"))[1]
+    q_rows = {"q_values": 0, "q_differ": 0, "q_differ_beyond_boundary": 0,
+              "max_boundary_ulps_of_a_differing_q": 0.0}
+    for kind in ("m", "v"):
+        for hq, cq, x in zip(tree_leaves(new_host[1][kind], is_q), tree_leaves(new_card[1][kind], is_q),
+                             tree_leaves(f32[kind])):
+            x = (torch.log(torch.clamp_min(x, tadamw._V_FLOOR)) if kind == "v" else x).numpy()
+            pad = hq["q"].shape[-1] - x.shape[-1]
+            x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+            scale = np.repeat(hq["scale"].numpy(), opt8.block, axis=-1)
+            pre = x / scale                                    # the value round() takes
+            # in ulps of the rounded value (of 0.5 at least: below it the
+            # nearest boundary is 0.5 itself)
+            ulps = np.abs(pre - np.floor(pre) - 0.5) / np.spacing(np.maximum(np.abs(pre), 0.5))
+            differ = hq["q"].numpy() != cq["q"].cpu().numpy()
+            q_rows["q_values"] += differ.size
+            q_rows["q_differ"] += int(differ.sum())
+            q_rows["q_differ_beyond_boundary"] += int((differ & (ulps > INT8_BOUNDARY_ULPS)).sum())
+            if differ.any():
+                q_rows["max_boundary_ulps_of_a_differing_q"] = max(
+                    q_rows["max_boundary_ulps_of_a_differing_q"], float(ulps[differ].max()))
+    params_err = max(float((c.cpu() - h).abs().max()) for c, h in zip(
+        tree_leaves(new_card[0]), tree_leaves(new_host[0])))
+    check(q_rows["q_differ_beyond_boundary"] == 0,
+          f"int8 moments differ card and host away from a rounding boundary: {q_rows}")
+    del new_card, new_host, decoded, f32, state
+    # the same gradient twice on the card: which leaves part
+    card_b = {k: v.to(dev) for k, v in host_b.items()}
+    g1, g2 = (tsteps.loss_and_grads(card_p, card_b, rcfg)[1] for _ in range(2))
+    parted = [name for (name, _), a, b in zip(leaf_rows(g1), tree_leaves(g1), tree_leaves(g2))
+              if not torch.equal(a, b)]
+    del g1, g2, dense, host_p, card_p, host_g
+    # the restart at reduced size on the card: six straight steps twice, and
+    # three steps, a checkpoint and three resumed steps
+    smoke = ["--smoke", "--steps", str(RESTART_STEPS), "--batch", str(CROSS_BATCH),
+             "--seq-len", str(CROSS_SEQ), "--log-every", str(RESTART_STEPS)]
+    with contextlib.redirect_stdout(io.StringIO()), tempfile.TemporaryDirectory() as ckpt_dir:
+        straight = ttrain.main(smoke, device=dev)
+        again = ttrain.main(smoke, device=dev)
+        ckpt = ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(RESTART_STEPS // 2)]
+        first = ttrain.main(smoke[:2] + [str(RESTART_STEPS // 2)] + smoke[3:] + ckpt, device=dev)
+        resumed = ttrain.main(smoke + ckpt, device=dev)
+    twice_equal = straight == again
+    restart_equal = first + resumed == straight
+    restart_rel = max(abs(a - b) / abs(b) for a, b in zip(first + resumed, straight))
+    check(len(first + resumed) == RESTART_STEPS and (restart_equal or not twice_equal),
+          f"the restart's losses {first + resumed} are not the straight run's {straight}, "
+          "though two straight runs are equal")
+    check(restart_rel <= 1e-5, f"the restart's losses lie {restart_rel} from the straight run's")
+    crosscheck_launches = dict(ops.LAUNCHES)
+    read_into("train_crosscheck")
+    where.update(path=None, app=None)
+    emit({"phase": "train_crosscheck", "models": cross,
+          "grad_tolerance": {"scale": ref.TRAIN_GRAD_SCALE,
+                             "rtol_row_tol_float32": ref.ATTN_TOL[torch.float32],
+                             "measure": "kernels/ref.py grad_excess, the whole leaf as the row"},
+          "batch": [CROSS_BATCH, CROSS_SEQ],
+          "int8_update": {**q_rows, "boundary_ulps_allowed": INT8_BOUNDARY_ULPS,
+                          "params_max_abs_diff": params_err},
+          "same_gradient_twice_parted_leaves": parted,
+          "restart": {"straight": straight, "again": again, "first": first,
+                      "resumed": resumed, "straight_runs_bit_equal": twice_equal,
+                      "restart_bit_equal": restart_equal, "restart_max_rel_diff": restart_rel},
+          "nondeterministic_op": None if not parted else (
+              "the embedding's gradient: the backward of params['embed'][tokens] "
+              "accumulates rows with index_put_(accumulate=True)"
+              if parted == ["/embed"] else "not identified"),
+          "launches": crosscheck_launches, "wall_s": time.perf_counter() - t_phase})
+
+    # -- 17. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card
@@ -1620,7 +1923,7 @@ def main() -> None:
             check(tol_ratio <= 1.0, f"{name} is {tol_ratio} times its tolerance")
 
     for name in shape_of:
-        check(name in largest, f"{name} was never called on the card by phases 2-14")
+        check(name in largest, f"{name} was never called on the card by phases 2-16")
 
     def by_path(name, work_of, terms_per_s):
         """Time, bound and launches of ``name`` at each path's largest call."""
@@ -1836,8 +2139,8 @@ def main() -> None:
             "library_error": library_error,
         }, (q, k, v, kw, sdpa, *flash_work(q, k, **kw))
 
-    for key in ("float32", "windowed", "lm_prefill"):
-        check(key in flash_largest, f"flash attention had no {key} call in phases 7-11")
+    for key in ("float32", "windowed", "lm_prefill", "train"):
+        check(key in flash_largest, f"flash attention had no {key} call in phases 10-16")
     cases = {key: flash_case(key, call) for key, call in
              (("largest", largest["flash_attention"]), *flash_largest.items())}
     emit({"phase": "flash_checks", "checks": [row for row, _ in cases.values()]})
@@ -1845,12 +2148,23 @@ def main() -> None:
         check(row["tol_ratio"] <= 1.0,
               f"flash attention ({key} call) is {row['tol_ratio']} times its tolerance "
               f"(max abs err {row['max_abs_err']})")
-    for key in ("float32", "windowed", "lm_prefill"):
+    for key in ("float32", "windowed", "lm_prefill", "train"):
         row, (q, k, v, kw, sdpa, nbytes, flops, peak) = cases[key]
         row.update(ms=timed(lambda: ops.flash_attention(q, k, v, **kw)),
                    plain_ms=timed(lambda: ref.attention_ref(q, k, v, **kw)),
                    bound_ms=bound(nbytes, flops, peak)[0],
                    library_ms=timed(sdpa) if sdpa is not None else None)
+    # the train step's backward of K6: the plain attention recomputed and
+    # differentiated (FlashAttentionFn.backward), at the train call's inputs
+    row, (q, k, v, kw, *_) = cases["train"]
+    q_g, k_g, v_g = (t.detach().requires_grad_() for t in (q, k, v))
+    d_o = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def recompute_backward():
+        return torch.autograd.grad(ref.attention_ref(q_g, k_g, v_g, **kw), (q_g, k_g, v_g), d_o)
+
+    row["backward_recompute_ms"] = timed(recompute_backward)
+    del q_g, k_g, v_g, d_o
     row, (q, k, v, kw, sdpa, nbytes, flops, peak) = cases["largest"]
     record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:130",
@@ -1902,15 +2216,11 @@ def main() -> None:
     # combine and K7) against the plain route (the plain states, combine and
     # chunk scan), within SCAN_TOL
     ry, rh = ops.mamba_scan(x7, dt7, a7, b7, c7, chunk=chunk7)
-    ps = ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, torch.zeros_like(h07), chunk=chunk7)[1]
-    py, ph = ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7,
-                                      ref.mamba_combine_ref(dt7, a7, ps, chunk=chunk7),
-                                      chunk=chunk7)
-    ph = ph[:, -1]
+    py, ph = ref.mamba_route_ref(x7, dt7, a7, b7, c7, chunk=chunk7)
     route = {"route_y_tol_ratio": ref.scan_excess(ry, py, chunk7),
              "route_state_tol_ratio": ref.state_excess(rh, ph),
              "route_bit_identical": bool(torch.equal(ry, py) and torch.equal(rh, ph))}
-    del ry, rh, ps, py, ph
+    del ry, rh, py, ph
     check(max(route["route_y_tol_ratio"], route["route_state_tol_ratio"]) <= 1.0,
           f"ops.mamba_scan lies {route} of SCAN_TOL from the plain route")
     def k7_work(x, dt, a, b, c, h0):

@@ -1,0 +1,3 @@
+from .manager import CheckpointManager, latest_step, load_checkpoint, save_checkpoint
+
+__all__ = ["CheckpointManager", "latest_step", "load_checkpoint", "save_checkpoint"]

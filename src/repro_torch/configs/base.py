@@ -77,7 +77,7 @@ class ArchConfig:
     norm: str = "rms"                # rms | ln
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
-    remat: str = "full"              # none | full (no effect without a gradient)
+    remat: str = "full"              # none | full: checkpoint each layer group under autograd
     layer_unroll: bool = False       # the port always runs layers as a Python loop
     subquadratic: bool = False       # decides long_500k applicability
 

@@ -5,6 +5,13 @@ A CUDA tensor goes to the hand-written kernel in ``csrc/`` or the call
 raises: there is no size threshold below which the plain version takes
 over, and no fallback when the library cannot be built or a launch fails.
 Each wrapper adds one to :data:`LAUNCHES` where it launches its kernel.
+
+Attention and the Mamba scan are also differentiable.  On inputs that
+require a gradient they go through :class:`FlashAttentionFn` and
+:class:`MambaScanFn`, on both devices: the forward is the device's (the
+kernel on CUDA, the plain version on the CPU), the backward the gradient of
+the plain version recomputed under autograd.  The reference has no backward
+kernel either: off the TPU it differentiates its plain attention and scan.
 """
 
 from __future__ import annotations
@@ -219,17 +226,66 @@ def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _recompute_grads(ctx, plain, grad_outputs):
+    """The gradients of ``plain`` (a tensor or a tuple of them) of the
+    inputs ``ctx`` saved, against ``grad_outputs`` (None where an output
+    has none), recomputed under autograd; None for an input that needs
+    none.  The plain versions compute in float32 whatever their inputs'
+    type, so they are recomputed from float32 copies: an input used in
+    several places gets its gradient summed in float32 and rounded to its
+    own type once."""
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        xs = [t.detach().float().requires_grad_(need)
+              for t, need in zip(saved, ctx.needs_input_grad)]
+        outs = plain(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g.float()) for o, g in zip(outs, grad_outputs) if g is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], [x for x in xs if x.requires_grad],
+                                         [g for _, g in pairs]))
+    return tuple(next(grads).to(t.dtype) if x.requires_grad else None for t, x in zip(saved, xs))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the device's forward (K6 on
+    CUDA), the backward ``ref.attention_ref``'s gradient recomputed from q,
+    k and v.  Use :func:`flash_attention`, which routes here."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = {"causal": causal, "window": window}
+        return _flash_forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, d_o):
+        grads = _recompute_grads(
+            ctx, lambda q, k, v: ref.attention_ref(q, k, v, **ctx.mask), (d_o,))
+        return (*grads, None, None)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
     """(B,Hq,Sq,D) x (B,Hkv,Skv,D) -> (B,Hq,Sq,D) masked softmax attention
     in q's dtype (see ``ref.attention_ref``).  Sq and Skv may be any length;
-    nothing is padded."""
+    nothing is padded.  Differentiable (:class:`FlashAttentionFn`)."""
     b, hq, sq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal, window)
+
+
+def _flash_forward(q, k, v, causal, window):
+    b, hq, sq, d = q.shape
     if _on_cpu(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
@@ -447,6 +503,26 @@ def mamba_chunk_combine(
     return h_init
 
 
+class MambaScanFn(torch.autograd.Function):
+    """:func:`mamba_scan` under autograd: the device's forward (the states
+    pass, the combine and K7 on CUDA), the backward the gradient of the
+    plain route ``ref.mamba_route_ref`` recomputed from x, dt, a, b and c.
+    Use :func:`mamba_scan`, which routes here."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _mamba_scan_forward(x, dt, a, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, d_y, d_h):
+        grads = _recompute_grads(
+            ctx, lambda *xs: ref.mamba_route_ref(*xs, chunk=ctx.chunk), (d_y, d_h))
+        return (*grads, None)
+
+
 def mamba_scan(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     c: torch.Tensor, *, chunk: int = 128,
@@ -457,7 +533,13 @@ def mamba_scan(
     ``H_init(c) = Decay(c-1) * H_init(c-1) + S_local(c-1)``
     (:func:`mamba_chunk_combine`), and the chunk scan from ``H_init``.  A
     sequence of one chunk starts from zero and needs neither of the first
-    two."""
+    two.  Differentiable (:class:`MambaScanFn`)."""
+    if _needs_grad(x, dt, a, b, c):
+        return MambaScanFn.apply(x, dt, a, b, c, chunk)
+    return _mamba_scan_forward(x, dt, a, b, c, chunk)
+
+
+def _mamba_scan_forward(x, dt, a, b, c, chunk):
     bsz, length, d = x.shape
     if length <= chunk:
         h_init = torch.zeros((bsz, 1, d, a.shape[1]), dtype=torch.float32, device=x.device)

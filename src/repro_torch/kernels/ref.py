@@ -60,9 +60,11 @@ def attention_ref(
             mask &= q_idx >= kv_idx
         if window > 0:
             mask &= (q_idx - kv_idx) < window
-        p = torch.softmax(s.masked_fill_(~mask, NEG_INF), dim=-1)
+        # out of place: autograd follows this function (softmax's backward
+        # reads its own output); the values are the same
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
         del s
-        p.masked_fill_(torch.isnan(p), 0.0)             # fully masked rows
+        p = p.masked_fill(torch.isnan(p), 0.0)          # fully masked rows
         outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype))
         del p
     return torch.cat(outs, dim=3).reshape(b, hq, sq, d)
@@ -307,16 +309,35 @@ def mamba_combine_ref(
     s_local(c-1)`` in float32, one ``torch.addcmul`` a chunk: the
     combine of ``repro.kernels.ops.mamba_scan`` (its ``lax.scan``).  dt (B, L, D),
     a (D, N) float32; L need not be a multiple of ``chunk`` (only the
-    complete chunks before the last are summed)."""
+    complete chunks before the last are summed).  Out of place, so that
+    autograd can follow it."""
     bsz, length, d = dt.shape
     nc = s_local.shape[1]
     full = (nc - 1) * chunk
     dt_sum = dt[:, :full].reshape(bsz, nc - 1, chunk, d).sum(dim=2, dtype=torch.float32)
     decay = torch.exp(dt_sum[..., None] * a.float())
-    h_init = torch.zeros_like(s_local)
+    states = [torch.zeros_like(s_local[:, 0])]
     for ci in range(1, nc):
-        torch.addcmul(s_local[:, ci - 1], decay[:, ci - 1], h_init[:, ci - 1], out=h_init[:, ci])
-    return h_init
+        states.append(torch.addcmul(s_local[:, ci - 1], decay[:, ci - 1], states[-1]))
+    return torch.stack(states, dim=1)
+
+
+def mamba_route_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    c: torch.Tensor, *, chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``ops.mamba_scan``'s route, ``(y, h_final (B,
+    D, N))`` from a zero state: each chunk's end state from zero, the
+    combine, and the chunk scan from the combined states (one chunk: the
+    scan from zero alone)."""
+    bsz, length, d = x.shape
+    h_init = torch.zeros((bsz, -(-length // chunk), d, a.shape[1]), dtype=torch.float32,
+                         device=x.device)
+    if length > chunk:
+        s_local = mamba_chunk_scan_ref(x, dt, a, b, b, h_init, chunk=chunk)[1]
+        h_init = mamba_combine_ref(dt, a, s_local, chunk=chunk)
+    y, h = mamba_chunk_scan_ref(x, dt, a, b, c, h_init, chunk=chunk)
+    return y, h[:, -1]
 
 
 def mamba_scan_ref(
@@ -368,6 +389,27 @@ def scan_excess(out: torch.Tensor, plain: torch.Tensor, chunk: int) -> float:
     rms = rms.repeat_interleave(chunk, dim=1)[:, :length]
     diff = (out.float() - ref_f).abs()
     limit = rtol * ref_f.abs() + row_tol * rms
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+#: how far a whole model's gradients on the card may lie from the host's,
+#: in units of :data:`ATTN_TOL` (equal to :data:`SCAN_TOL`) with the whole
+#: leaf as the row: the forward's differences (K6 or the scan route against
+#: the plain versions, the card's matmuls against the host's) are carried
+#: through a few layers and back
+TRAIN_GRAD_SCALE = 2.0**4
+
+
+def grad_excess(out: torch.Tensor, plain: torch.Tensor, scale: float = 1.0) -> float:
+    """The largest ``|out - plain| / (scale (rtol |plain| + row_tol rms))``
+    over a gradient leaf, ``rms`` that of the whole leaf, with
+    :data:`ATTN_TOL` of ``plain``'s type; at most 1 means ``out`` agrees
+    with ``plain``."""
+    rtol, row_tol = ATTN_TOL[plain.dtype]
+    ref_f = plain.float()
+    diff = (out.float() - ref_f).abs()
+    limit = scale * (rtol * ref_f.abs() + row_tol * ref_f.square().mean().sqrt())
     ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
     return float(ratio.max()) if ratio.numel() else 0.0
 

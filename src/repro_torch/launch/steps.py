@@ -1,7 +1,10 @@
-"""Prefill and serve steps (the port of ``repro.launch.steps``).
+"""Train, prefill and serve steps (the port of ``repro.launch.steps``).
 
-``make_train_step`` waits for the training slice (ROADMAP.md, module
-queue 9).  The steps run without autograd: serving takes no gradient.
+The train step differentiates ``transformer.loss_fn`` with
+``torch.autograd.grad`` over the parameter leaves in the reference's leaf
+order and applies AdamW; it runs on one device (the sharded trainer is
+ROADMAP.md, queue 1, item 8.5).  The prefill and serve steps run without
+autograd: serving takes no gradient.
 """
 
 from __future__ import annotations
@@ -10,6 +13,65 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import transformer as tf
+from ..optim import (AdamWConfig, adamw_update, cosine_schedule, decompress_int8,
+                     ef_compress_gradients)
+from ..tree import tree_leaves, tree_map, tree_unflatten
+
+
+def loss_and_grads(params, batch: dict, cfg: ArchConfig):
+    """``(loss, grads)``: ``loss_fn`` and its gradient in every parameter leaf,
+    the counterpart of ``jax.value_and_grad(loss_fn)``.  A leaf the loss does
+    not reach raises (``torch.autograd.grad`` without ``allow_unused``)."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = tf.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum: int = 1,
+                    accum_dtype=torch.bfloat16, compress_grads: bool = False):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), the
+    arguments left as they were; ``metrics`` holds ``loss`` and
+    ``grad_norm`` as 0-dim float32 tensors on the parameters' device.
+
+    ``accum`` > 1 splits the batch into that many microbatches and sums
+    their gradients in ``accum_dtype``.  ``compress_grads`` applies int8
+    error-feedback compression to the gradients (the residual rides in the
+    optimizer state as ``ef``).
+    """
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, grads = loss_and_grads(params, batch, cfg)
+        else:
+            micro = {k: t.reshape(accum, t.shape[0] // accum, *t.shape[1:])
+                     for k, t in batch.items()}
+            loss = 0.0
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
+                             params)
+            for i in range(accum):
+                part, g = loss_and_grads(params, {k: t[i] for k, t in micro.items()}, cfg)
+                grads = tree_map(lambda a, b: a + b.to(accum_dtype), grads, g)
+                loss = loss + part
+            loss = loss / accum
+            grads = tree_map(lambda g: g / accum, grads)
+        if compress_grads:
+            comp, ef = ef_compress_gradients(grads, opt_state.get("ef"), block=256)
+            grads = tree_map(lambda pair, g: decompress_int8(*pair, g.shape), comp, grads,
+                             is_leaf=lambda x: isinstance(x, tuple))
+            opt_state = dict(opt_state, ef=ef)
+        ef_state = opt_state.get("ef")
+        params, opt_state = adamw_update(
+            params, grads, {k: v for k, v in opt_state.items() if k != "ef"},
+            opt, cosine_schedule(opt_state["step"]),
+        )
+        if ef_state is not None:
+            opt_state = dict(opt_state, ef=ef_state)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig):

@@ -113,3 +113,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10_00
     y1 = x1 * cos - x2 * sin
     y2 = x1 * sin + x2 * cos
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32.
+
+    As the reference: logsumexp over float32 logits, and the gold logit
+    taken in the logits' type by a contraction with a one-hot of the labels
+    (built in that type, without an int64 one-hot of the logits' size).  All
+    but one term of the contraction are zeros, so it is the gathered logit.
+    """
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    onehot = torch.zeros_like(logits).scatter_(-1, labels[..., None].long(), 1.0)
+    gold = torch.einsum("...v,...v->...", logits, onehot).float()
+    return torch.mean(logz - gold)

@@ -2,34 +2,39 @@
 ``repro.models.transformer``).
 
   forward       training / prefill over full sequences (logits)
+  loss_fn       mean token cross-entropy plus the weighted MoE aux loss
   init_params   concrete init from a ``torch.Generator``
   init_cache    decode caches per layer
   decode_step   one-token decode updating the cache in place
 
 Parameters keep the reference's layout: ``stack{si}/l{li}/...`` with a
 leading ``repeat`` axis, weights ``(d_in, d_out)``.  The reference scans
-each stack with ``lax.scan``; here a Python loop walks the ``repeat`` axis
-(no gradient is taken, so there is nothing to rematerialize).  The loop
-also lets the residual stream change type between layers, as the
+each stack with ``lax.scan``; here a Python loop walks the ``repeat`` axis,
+and under autograd with ``remat="full"`` each layer group runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(group_fn)``.
+The loop also lets the residual stream change type between layers, as the
 reference's unrolled stacks do: with bf16 activations and float32 weights
 the first layer's ``x + h`` promotes the stream to float32.
 
 The port has the ``gqa`` and ``mamba`` mixers and the ``swiglu``,
 ``gelu`` and ``moe`` FFNs: every layer kind of the dense GQA models and of
 jamba.  The ``mla`` and ``mlstm``/``slstm`` mixers raise
-``NotImplementedError``; they wait for later slices (ROADMAP.md, module
-queue 9).  ``logical_shard`` is the identity on one card and is left out.
+``NotImplementedError``; they wait for later slices (ROADMAP.md, queue 1,
+item 8).  ``logical_shard`` is the identity on one card and is left out.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
 from .blocks import (
+    cross_entropy,
     gelu_ffn,
     init_gelu_ffn,
     init_linear,
@@ -52,7 +57,7 @@ def _check_ported(cfg: ArchConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: layer kind ({spec.mixer}, {spec.ffn}) is not ported "
                     f"yet; this slice has mixers {_MIXERS} and FFNs {_FFNS} "
-                    "(ROADMAP.md, module queue 9)"
+                    "(ROADMAP.md, queue 1, item 8)"
                 )
 
 
@@ -152,13 +157,37 @@ def _index(tree, r):
     return tree[r]
 
 
+def _unbind(tree) -> list:
+    """The slices of a stacked tree along its ``repeat`` axis, a tree each.
+    One ``unbind`` a leaf: its backward writes the stacked gradient once,
+    where indexing each slice would add a zero-padded full-size gradient a
+    slice (``repeat`` squared leaf sizes of traffic)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(t) for k, t in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+    return list(tree.unbind(0))
+
+
 def _run_stacks(params, x, cfg, positions):
-    """Every stack's layers in order, ``repeat`` times each group; returns
-    (x, the summed MoE aux loss, float32)."""
+    """Every stack's layer groups in order, ``repeat`` times each; returns
+    (x, the summed MoE aux loss, float32).  Under autograd with
+    ``cfg.remat == "full"`` each group is checkpointed: its activations are
+    recomputed in the backward."""
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, _, _, spec, lp in _layers(params, cfg):
-        x, aux = _apply_layer(lp, spec, x, cfg, positions)
-        if aux is not None:
+    for si, (repeat, specs) in enumerate(cfg.stacks):
+
+        def group_fn(x, gp, specs=specs):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for li, spec in enumerate(specs):
+                x, a = _apply_layer(gp[f"l{li}"], spec, x, cfg, positions)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        for gp in _unbind(params[f"stack{si}"]):
+            x, aux = checkpoint(group_fn, x, gp, use_reentrant=False) if remat else group_fn(x, gp)
             aux_total = aux_total + aux
     return x, aux_total
 
@@ -172,7 +201,10 @@ def _logits(params, x, cfg):
 def forward(params, batch: dict, cfg: ArchConfig):
     """batch: tokens (B,S) [+ frontend_embeds (B,N,D)] -> (logits (B,S,V), aux)."""
     _check_ported(cfg)
-    x = params["embed"][batch["tokens"]].to(cfg.activation_dtype)
+    # F.embedding, not indexing: its backward adds each token's row in a
+    # fixed order, where indexing's (index_put_ with accumulate) adds them
+    # with atomics on the CPU, so two runs part and a restart is not exact
+    x = F.embedding(batch["tokens"], params["embed"]).to(cfg.activation_dtype)
     n_front = 0
     if cfg.frontend and "frontend_embeds" in batch:
         fe = mm(batch["frontend_embeds"].to(cfg.activation_dtype), params["frontend_proj"])
@@ -184,6 +216,13 @@ def forward(params, batch: dict, cfg: ArchConfig):
     if n_front:
         x = x[:, n_front:]
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """batch: tokens and labels (B,S) -> the mean token cross-entropy plus
+    ``cfg.aux_loss_weight`` times the MoE aux loss, float32."""
+    logits, aux = forward(params, batch, cfg)
+    return cross_entropy(logits, batch["labels"]) + cfg.aux_loss_weight * aux
 
 
 # ======================================================================

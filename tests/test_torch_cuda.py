@@ -17,8 +17,14 @@ from repro_torch.core.hardware import DYNAP_SE_16
 from repro_torch.core.partition import partition_greedy
 from repro_torch.core.runtime import single_tile_order
 from repro_torch.core.sdfg import sdfg_from_clusters
+from repro_torch import configs as tconfigs
+from repro_torch.data import DataConfig, TokenStream
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import transformer as ttf
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.tree import tree_leaves, tree_map
 
 from _torch_helpers import dyadic_csr
 
@@ -827,3 +833,112 @@ def test_spike_input_bit_identical_twice_on_the_card(seed):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["spike_input"] == before + 2
     assert torch.equal(first.cpu(), host) and torch.equal(second, first)
+
+
+# ======================================================================
+# gradients through K6 and the scan route
+# ======================================================================
+def _attention_and_scan_inputs(dev, dtype, seed):
+    """(q, k, v, x, dt, a_log, b, c, their output weights), seeded, on
+    ``dev``, each input a leaf that requires a gradient."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = [(2, 4, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64),
+              (2, 80, 32), (2, 80, 32), (32, 8), (2, 80, 8), (2, 80, 8)]
+    ts = [torch.randn(s, generator=gen) for s in shapes]
+    ts[4] = 0.01 + 0.1 * torch.rand(shapes[4], generator=gen)
+    weights = [torch.randn(s, generator=gen) for s in ((2, 4, 200, 64), (2, 80, 32), (2, 32, 8))]
+    leaves = [t.to(dev, torch.float32 if i == 5 else dtype).requires_grad_()
+              for i, t in enumerate(ts)]
+    return leaves, [w.to(dev) for w in weights]
+
+
+def _attention_and_scan_loss(leaves, weights):
+    q, k, v, x, dt, a_log, b, c = leaves
+    o = ops.flash_attention(q, k, v, causal=True, window=0)
+    y, h = ops.mamba_scan(x, dt, -torch.exp(a_log), b, c, chunk=32)
+    return ((o.float() * weights[0]).sum() + (y.float() * weights[1]).sum()
+            + (h * weights[2]).sum()), (o, y)
+
+
+def test_a_card_call_that_needs_a_gradient_goes_through_the_functions(monkeypatch):
+    """With the launches faked: on "CUDA" operands that require a gradient,
+    flash_attention and mamba_scan launch their kernels inside
+    FlashAttentionFn and MambaScanFn, so each output has a grad_fn and the
+    backward (the plain versions recomputed) reaches every input, equal to
+    autograd through the plain versions; under no_grad the launches are
+    the same and nothing is recorded."""
+    lib = _fake_lib(monkeypatch)
+    leaves, weights = _attention_and_scan_inputs("cpu", torch.float32, 0)
+    loss, (o, y) = _attention_and_scan_loss(leaves, weights)
+    assert isinstance(o.grad_fn, ops.FlashAttentionFn._backward_cls)
+    assert isinstance(y.grad_fn, ops.MambaScanFn._backward_cls)
+    launched = [entry for entry, _, _ in lib.calls]
+    assert launched == ["flash_attention", "mamba_chunk_scan", "mamba_chunk_combine",
+                        "mamba_chunk_scan"]
+    loss.backward()
+    q, k, v, x, dt, a_log, b, c = (t.detach().requires_grad_() for t in leaves)
+    y_p, h_p = tref.mamba_route_ref(x, dt, -torch.exp(a_log), b, c, chunk=32)
+    plain = ((tref.attention_ref(q, k, v) * weights[0]).sum() + (y_p * weights[1]).sum()
+             + (h_p * weights[2]).sum())
+    for leaf, g in zip(leaves, torch.autograd.grad(plain, [q, k, v, x, dt, a_log, b, c])):
+        assert leaf.grad is not None and torch.equal(leaf.grad, g)
+    lib.calls.clear()
+    with torch.no_grad():
+        _, (o, y) = _attention_and_scan_loss(leaves, weights)
+    assert o.grad_fn is None and y.grad_fn is None
+    assert [entry for entry, _, _ in lib.calls] == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_and_scan_gradients_on_the_card(dtype):
+    """K6 and the scan route (states pass, combine, K7) in the forward on
+    the card, the plain recompute in the backward: every input's gradient
+    within ``ref.grad_excess`` 1 of the host's."""
+    dev = _need_cuda()
+    card, weights = _attention_and_scan_inputs(dev, dtype, 1)
+    host = [t.detach().cpu().requires_grad_() for t in card]
+    before = dict(ops.LAUNCHES)
+    _attention_and_scan_loss(card, weights)[0].backward()
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in (
+        "flash_attention", "mamba_chunk_states", "mamba_chunk_combine", "mamba_chunk_scan")} \
+        == {"flash_attention": 1, "mamba_chunk_states": 1, "mamba_chunk_combine": 1,
+            "mamba_chunk_scan": 1}
+    _attention_and_scan_loss(host, [w.cpu() for w in weights])[0].backward()
+    for c, h in zip(card, host):
+        assert c.grad is not None and c.grad.dtype == h.grad.dtype
+        assert tref.grad_excess(c.grad.cpu(), h.grad) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "jamba-v0.1-52b"])
+def test_a_reduced_train_step_agrees_between_card_and_host(arch):
+    """The same parameters and batch: the loss within 1e-5, every gradient
+    leaf within ``ref.TRAIN_GRAD_SCALE`` of ``ref.grad_excess``, and one
+    AdamW step from them moving every parameter by at most the learning
+    rate (plus its weight decay) on both."""
+    dev = _need_cuda()
+    cfg = tconfigs.reduced(tconfigs.get_arch(arch))
+    host_p = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    card_p = tree_map(lambda t: t.to(dev), host_p)
+    b = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)).batch(0)
+    host_b = {k: torch.as_tensor(v) for k, v in b.items()}
+    before = dict(ops.LAUNCHES)
+    card_loss, card_g = tsteps.loss_and_grads(card_p, {k: v.to(dev) for k, v in host_b.items()},
+                                              cfg)
+    torch.cuda.synchronize()
+    n_gqa = sum(s.mixer == "gqa" for r, specs in cfg.stacks for s in specs for _ in range(r))
+    assert ops.LAUNCHES["flash_attention"] - before["flash_attention"] == n_gqa
+    host_loss, host_g = tsteps.loss_and_grads(host_p, host_b, cfg)
+    assert abs(float(card_loss) - float(host_loss)) <= 1e-5 * abs(float(host_loss))
+    for c, h in zip(tree_leaves(card_g), tree_leaves(host_g)):
+        assert torch.isfinite(c).all() and bool((c != 0).any())
+        assert tref.grad_excess(c.cpu(), h, tref.TRAIN_GRAD_SCALE) <= 1.0
+    opt = AdamWConfig(lr=1e-3)
+    step = tsteps.make_train_step(cfg, opt)
+    card_new, _, _ = step(card_p, adamw_init(card_p, opt), {k: v.to(dev) for k, v in host_b.items()})
+    host_new, _, _ = step(host_p, adamw_init(host_p, opt), host_b)
+    for p, c, h in zip(tree_leaves(host_p), tree_leaves(card_new), tree_leaves(host_new)):
+        bound = opt.lr * (1 + opt.weight_decay * p.abs()) * 1.001
+        assert ((c.cpu() - p).abs() <= bound).all() and ((h - p).abs() <= bound).all()

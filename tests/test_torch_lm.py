@@ -53,21 +53,22 @@ def _cfgs(name, **kw):
 def _random_params(cfg, seed):
     """The reference's parameter pytree with every leaf redrawn from a
     seeded numpy stream: weights N(0, 1/d_in), norm weights 1 + N(0, 0.1^2),
-    biases N(0, 0.1^2)."""
+    biases N(0, 0.1^2).  The layout comes from ``jax.eval_shape`` (the
+    reference's init is not run)."""
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         name = str(path[-1].key)
         if name.startswith("norm") and not name.endswith("_b") or name == "final_norm":
             x = 1.0 + 0.1 * rng.standard_normal(leaf.shape)
-        elif leaf.ndim == 1 or name.startswith("b") or name.endswith("_b"):
+        elif len(leaf.shape) == 1 or name.startswith("b") or name.endswith("_b"):
             x = 0.1 * rng.standard_normal(leaf.shape)
         else:
             x = rng.standard_normal(leaf.shape) / np.sqrt(leaf.shape[-2])
         return jnp.asarray(x.astype(F32))
 
     return jax.tree_util.tree_map_with_path(
-        draw, rtf.init_params(cfg, jax.random.PRNGKey(seed))
+        draw, jax.eval_shape(lambda: rtf.init_params(cfg, jax.random.PRNGKey(seed)))
     )
 
 
