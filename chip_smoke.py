@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's compile-and-admit, joint placement and serving,
-design-space sweep, sharded λ-search, SNN execution, LM serving and LM
-training paths on one GPU.
+design-space sweep, sharded λ-search, SNN execution, LM serving (dense GQA,
+jamba's hybrid, deepseek-v3's MLA and MoE, xlstm-350m) and LM training paths
+on one GPU.
 
 Run from the repository root:  ``PYTHONPATH=src python3 chip_smoke.py``
 (the script also finds ``src/`` beside itself).  It needs one CUDA device
@@ -98,7 +99,36 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               the 7 Mamba layers launches K7's states-only pass, the combine
               and K7 once each; a second, profiled run splits their device
               time into the three
-15. train     the trainer's main path: launch.train.main at its defaults
+15. deepseek_serve deepseek-v3-671b cut to one dense-prefix (MLA, SwiGLU) and
+              one MoE (MLA, 256 experts top-8 + 1 shared) layer at full width,
+              float32 params from seed 0 (about 13.9 B), served at the
+              reference's defaults with no token dropped (capacity experts /
+              top_k); the prefill step (decompressed MLA) against the
+              teacher-forced decode (absorbed MLA) with float32 activations at
+              the reference's 2e-2 (the bf16 run's difference printed,
+              unchecked: routing amplifies the decode's bf16 rounding);
+              the first MLA layer's prefill against its token-by-token decode
+              within MLA_CONTEXT_TOL of the decode output's rms; no kernel of
+              ops launches; decode step against the bound of reading the
+              weights, peak memory beside the parameters' bytes
+16. deepseek_prefill the same cut in bf16 params at the config's capacity,
+              one prefill step at (1, 4096) tokens; a second, profiled run
+              splits its device time into the MLA attention's float32
+              einsums (_sdpa), the MoE and the rest
+17. xlstm_serve xlstm-350m in full (24 layers), float32 params from seed 0,
+              served at the reference's defaults; layer 0 (sLSTM) and layer 1
+              (mLSTM, chunkwise) against their decode recurrences in float32
+              within the reference's atol 2e-4 / rtol 1e-3; no kernel of ops
+              launches.  The whole model's prefill against its teacher-forced
+              decode (float32 and bf16 activations) is printed against the
+              reference's recurrent-family contract, not checked: at random
+              init the mLSTMs amplify a rounding so far that the reference
+              misses that contract itself at this shape
+18. xlstm_prefill the whole model in bf16 params, one prefill step at (1, 4096)
+              tokens (64 mLSTM chunks a layer, 4096 sLSTM steps in each of 3
+              layers); a prefill of its first 512 tokens under torch.profiler
+              splits its wall into torch's dispatch and the card's busy time
+19. train     the trainer's main path: launch.train.main at its defaults
               (qwen2-1.5b at full width and depth, batch 8 x seq 256 from
               TokenStream(seed 0), float32 params and moments, remat "full",
               lr 1e-3), 4 steps of its own loop: losses finite, step 1's
@@ -108,7 +138,7 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               recompute; the backward is the plain recompute); step wall
               (data excluded), tokens/s, peak memory beside its reckoning, the
               card's busy share in the profiled last step
-16. train_crosscheck reduced qwen2-1.5b and reduced jamba from the same
+20. train_crosscheck reduced qwen2-1.5b and reduced jamba from the same
               params and batch on the card (K6; the states pass, the combine
               and K7) and the host (the plain versions): loss within 1e-5,
               every gradient leaf within ref.TRAIN_GRAD_SCALE of
@@ -118,9 +148,9 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               twice on the card (the leaves that part, if any, are named);
               the reduced restart: 6 straight steps twice, and 3 steps, a
               checkpoint and 3 resumed steps
-17. kernels   every kernel against its plain PyTorch version on the card, with
+21. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
-              2-16: K1-K5 bit-identical; flash attention, also at its largest
+              2-20: K1-K5 bit-identical; flash attention, also at its largest
               float32 call, its largest windowed call, its largest
               dense-model prefill call (qwen2-1.5b's 32k, timed against SDPA
               as the largest is) and its largest train call (with the time
@@ -144,9 +174,9 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               and the 10 joint_serving and 10 sharded shapes with the most
               launches, with the launch-weighted ``rule2_ms``)
 
-Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-16) and
-read just after, and reported per path; launches made to compare or time
-kernels do not count.
+Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-20) and
+read just after, and reported per path (phases 15-18 must launch none);
+launches made to compare or time kernels do not count.
 """
 
 from __future__ import annotations
@@ -206,6 +236,23 @@ CROSSBAR_EXAMPLE_CLUSTERS = 4
 #: recurrence (plain), float32: at most this share of the decode output's rms
 MAMBA_CONTEXT_TOL = 1e-4
 JAMBA = "jamba-v0.1-52b"
+#: deepseek-v3 cut to one dense-prefix and one MoE layer; the first MLA
+#: layer's decompressed prefill against its absorbed decode, float32: at most
+#: this share of the decode output's rms
+DEEPSEEK, MLA_CONTEXT_TOL = "deepseek-v3-671b", 1e-4
+#: xlstm-350m in full; each layer kind's prefill form against its decode, the
+#: reference's chunkwise-against-sequential contract (tests/test_models_smoke.py)
+XLSTM, XLSTM_LAYER_ATOL, XLSTM_LAYER_RTOL = "xlstm-350m", 2e-4, 1e-3
+#: the reference's decode-vs-forward contract for recurrent families
+#: (tests/test_models_smoke.py): fewer than this share of logits beyond
+#: atol + rtol |forward|, and the argmax of the first positions equal;
+#: xlstm_serve prints the whole model's figures against it
+RECURRENT_ATOL, RECURRENT_RTOL, RECURRENT_SHARE, RECURRENT_ARGMAX_POSITIONS = 5e-2, 5e-2, 0.08, 4
+#: tokens of the deepseek-v3 and xlstm-350m bf16 prefills (batch 1), and of
+#: xlstm's profiled prefill: the trace of 4096 tokens (some 600,000 host and
+#: device events) takes the profiler minutes to read
+DEEPSEEK_PREFILL_TOKENS = XLSTM_PREFILL_TOKENS = 4_096
+XLSTM_PROFILED_TOKENS = 512
 #: kernels whose largest call is the last of equal size (K7's second launch
 #: of a scan starts from the combined chunk states, not zeros)
 KEEP_LAST_OF_EQUAL = ("mamba_chunk_scan",)
@@ -430,6 +477,17 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
+def _first(tree):
+    """Repeat 0 of a stacked layer's parameters."""
+    return {k: _first(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[0]
+
+
+def _items(tree, prefix=""):
+    """(path, tensor) of a nested dict of parameters, paths joined by "/"."""
+    for k, v in tree.items():
+        yield from _items(v, f"{prefix}{k}/") if isinstance(v, dict) else ((prefix + k, v),)
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}; run from a checkout of the repository")
@@ -458,7 +516,10 @@ def main() -> None:
     from repro_torch.launch.sharding import Mesh
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as ttrain
+    from repro_torch.models import attention as tattn
     from repro_torch.models import mamba as tmamba
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import xlstm as txl
     from repro_torch.models.blocks import rms_norm
     from repro_torch.models import transformer as ttf
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -546,7 +607,7 @@ def main() -> None:
             launches[k][path] = v
 
     # Every wrapper is spied on: per path, the shapes it was given, and the
-    # inputs of its largest call, on which phase 15 times and checks it.
+    # inputs of its largest call, on which phase 21 times and checks it.
     where = {"path": None, "app": None}
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
@@ -1506,10 +1567,7 @@ def main() -> None:
     # K7 in context: the first Mamba layer's prefill against its decode
     check(cfg.stacks[0][1][0].mixer == "mamba", "jamba's layer 0 is not a Mamba layer")
 
-    def first(tree):    # repeat 0 of a stacked layer's parameters
-        return {k: first(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[0]
-
-    lp = first(params["stack0"]["l0"])
+    lp = _first(params["stack0"]["l0"])
     with torch.no_grad():
         # the layer's input in float32: the decode casts its scan output to
         # the input's type, which in bf16 would round what the prefill keeps
@@ -1599,7 +1657,337 @@ def main() -> None:
     del params, tokens
     torch.cuda.empty_cache()
 
-    # -- 15. training on one device (the trainer's main path) --------------
+    def float32_prefill_and_decode(cfg, params, prompts, max_len):
+        """The prefill step's logits and the serve loop's teacher-forced
+        decode logits for ``prompts`` with float32 activations, float32.
+        With bf16 activations the first layer's decode rounds its mixer's
+        output to bf16 where the prefill does not (as the reference's), and
+        MoE routing or the mLSTM's normaliser amplifies that rounding."""
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        dec = tserve.serve(f32, params, prompts, 1, max_len, dev, keep_prompt_logits=True)
+        fwd = tsteps.make_prefill_step(f32)(params, {"tokens": torch.as_tensor(prompts, device=dev)})
+        return fwd.float(), dec.prompt_logits.float()
+
+    # -- 15. deepseek-v3's MLA and MoE serving path --------------------------
+    # one dense-prefix layer and one MoE layer of deepseek-v3 at full width,
+    # float32 params from seed 0, served at the reference's defaults; no
+    # kernel of ops launches (the reference's MLA and MoE reach no Pallas
+    # kernel)
+    t_phase = time.perf_counter()
+    args = tserve.parse_args(["--arch", DEEPSEEK])
+    full_cfg = get_arch(DEEPSEEK)
+    cfg = dataclasses.replace(full_cfg, stacks=tuple((1, specs) for _, specs in full_cfg.stacks),
+                              moe_capacity=full_cfg.moe_experts / full_cfg.moe_top_k)
+    deepseek_note = (f"depth: 1 of the {full_cfg.stacks[0][0]} dense-prefix layers and 1 of the "
+                     f"{full_cfg.stacks[1][0]} MoE layers ({cfg.n_layers} of {full_cfg.n_layers}), "
+                     "widths in full")
+    serve_note = (deepseek_note + f"; moe_capacity {cfg.moe_capacity:g} (experts / top_k: no "
+                  f"token dropped, as DeepSeek-V3 serves) for the config's {full_cfg.moe_capacity}, "
+                  "whose drops depend on the batch and would part prefill from decode")
+    where.update(path="deepseek_serve", app=cfg.name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    cfg, params, prompts = tserve.setup(args, dev, cfg=cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    groups = collections.Counter()
+    for path, t in _items(params):
+        key = ("experts" if "/experts/" in path else "embed_lm_head" if path in ("embed", "lm_head")
+               else "mla" if "/mixer/" in path else "dense_ffn" if path.startswith("stack0/l0/ffn")
+               else "shared_router_norms")
+        groups[key] += t.numel() * t.element_size()
+    res = tserve.serve(cfg, params, prompts, args.gen_tokens, args.max_len, dev,
+                       keep_prompt_logits=True)
+    tokens = torch.as_tensor(prompts, device=dev)
+    t = time.perf_counter()
+    prefill_logits = tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_step_s = time.perf_counter() - t
+    step = tsteps.make_serve_step(cfg)
+    cache = ttf.init_cache(cfg, args.requests, args.max_len, dtype=torch.float32, device=dev)
+    step(params, cache, tokens[:, :1], 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        for i in range(1, 1 + PROFILED_DECODE_STEPS):
+            step(params, cache, tokens[:, :1], i)
+        torch.cuda.synchronize()
+    decode_us = device_us(prof)
+    decode_busy_ms = sum(decode_us.values()) / 1e3 / PROFILED_DECODE_STEPS
+    del cache, prof
+    # MLA in context: the first layer's decompressed prefill against its
+    # absorbed decode, token by token, on a float32 input and cache
+    lp = _first(params["stack0"]["l0"])
+    with torch.no_grad():
+        h_in = rms_norm(lp["norm1"], params["embed"][tokens].to(cfg.activation_dtype)).float()
+        out_prefill = tattn.mla_forward(lp["mixer"], h_in, cfg)
+        mla_cache = tattn.mla_init_cache(cfg, args.requests, args.prompt_len, torch.float32, dev)
+        out_decode = torch.cat([tattn.mla_decode(lp["mixer"], h_in[:, i:i + 1], mla_cache, i, cfg)[0]
+                                for i in range(args.prompt_len)], dim=1)
+    fwd, dec = float32_prefill_and_decode(cfg, params, prompts, args.max_len)
+    deepseek_launches = dict(ops.LAUNCHES)
+    where.update(path=None, app=None)
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(deepseek_launches.values()),
+          f"deepseek-v3's serving path launched {deepseek_launches}: its MLA and MoE have no kernel")
+    check(res.tokens.shape == (args.requests, args.gen_tokens)
+          and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(), "deepseek: bad generated tokens")
+    check(prefill_logits.shape == (args.requests, args.prompt_len, cfg.vocab)
+          and bool(torch.isfinite(prefill_logits).all()), "deepseek: prefill logits not finite")
+    serve_err = float((fwd - dec).abs().max())
+    check(bool(torch.allclose(fwd, dec, rtol=SERVE_RTOL, atol=SERVE_ATOL)),
+          f"deepseek: float32 prefill vs teacher-forced decode logits differ by {serve_err}")
+    bf16_err = float((prefill_logits.float() - res.prompt_logits.float()).abs().max())
+    mla_err = float((out_prefill - out_decode).abs().max())
+    mla_rms = float(out_decode.square().mean().sqrt())
+    mla_ratio = mla_err / (MLA_CONTEXT_TOL * mla_rms)
+    check(mla_ratio <= 1.0, f"the first MLA layer's prefill differs from its decode by {mla_err} "
+                            f"(rms {mla_rms}, limit {MLA_CONTEXT_TOL} of it)")
+    step_ms = 1e3 * res.decode_s / args.gen_tokens
+    # a decode step reads every weight but the embedding (8 rows of it)
+    read_bytes = sum(groups.values()) - params["embed"].numel() * 4
+    emit({"phase": "deepseek_serve", "arch": cfg.name, "reduced": serve_note,
+          "layers": cfg.n_layers, "params": n_params, "params_dtype": "float32",
+          "activation_dtype": str(cfg.activation_dtype), "requests": args.requests,
+          "prompt_len": args.prompt_len, "gen_tokens": args.gen_tokens, "max_len": args.max_len,
+          "setup_s": setup_s, "prefill_teacher_forced_s": res.prefill_s,
+          "decode_s": res.decode_s, "decode_tokens_per_s": res.tokens_per_s,
+          "decode_step_ms": step_ms, "decode_step_device_busy_ms": decode_busy_ms,
+          "decode_device_busy_share": decode_busy_ms / step_ms,
+          "decode_step_bound_ms": 1e3 * read_bytes / HBM_BYTES_PER_S,
+          "decode_step_bound_from": "the weights but the embedding, float32, read once "
+                                    "at 3.35 TB/s",
+          "decode_top_device_us": sorted(decode_us.items(), key=lambda kv: -kv[1])[:8],
+          "prefill_step_s": prefill_step_s,
+          "prefill_vs_decode_logits_max_abs_float32": serve_err,
+          "prefill_vs_decode_logits_max_abs_bf16_unchecked": bf16_err,
+          "mla_context": {"max_abs_err": mla_err, "decode_rms": mla_rms, "tol": MLA_CONTEXT_TOL,
+                          "tol_ratio": mla_ratio},
+          "sample": res.tokens[0][:16].tolist(), "launches": deepseek_launches,
+          "param_gb": {k: v / 1e9 for k, v in sorted(groups.items())},
+          "init_peak_gb": init_peak / 1e9, "peak_gb": peak / 1e9,
+          "wall_s": time.perf_counter() - t_phase})
+    del params, res, prefill_logits, fwd, dec, lp, h_in, out_prefill, out_decode, mla_cache
+    torch.cuda.empty_cache()
+
+    # -- 16. deepseek-v3's bf16 prefill ---------------------------------------
+    # the same two layers in bf16 params at the config's capacity, one prefill
+    # step at (1, DEEPSEEK_PREFILL_TOKENS); a second run times the
+    # attention's float32 einsums (_sdpa) and the MoE between CUDA events
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, moe_capacity=full_cfg.moe_capacity)
+    seq = DEEPSEEK_PREFILL_TOKENS
+    where.update(path="deepseek_prefill", app=cfg.name)
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = ttf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=cfg.activation_dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (1, seq)), device=dev)
+    prefill = tsteps.make_prefill_step(cfg)
+    t = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(logits.shape == (1, seq, cfg.vocab) and logits.dtype == cfg.activation_dtype,
+          f"deepseek: logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "deepseek: bf16 prefill logits not finite")
+    del logits
+    prefill_launches = dict(ops.LAUNCHES)
+    check(not any(prefill_launches.values()),
+          f"deepseek-v3's prefill launched {prefill_launches}: its MLA and MoE have no kernel")
+    peak = torch.cuda.max_memory_allocated()
+    spans = {"attention_sdpa": [], "moe": []}
+    sdpa, moe_forward = tattn._sdpa, tmoe.moe_forward
+
+    def timed_span(key, fn):
+        def call(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return call
+
+    tattn._sdpa = timed_span("attention_sdpa", sdpa)
+    tmoe.moe_forward = timed_span("moe", moe_forward)
+    try:
+        _, split = host_split(lambda: prefill(params, {"tokens": tokens}))
+    finally:
+        tattn._sdpa, tmoe.moe_forward = sdpa, moe_forward
+    split_ms = {k: sum(a.elapsed_time(b) for a, b in evs) for k, evs in spans.items()}
+    split_ms["rest"] = 1e3 * split["device_busy_s"] - sum(split_ms.values())
+    where.update(path=None, app=None)
+    emit({"phase": "deepseek_prefill", "arch": cfg.name, "tokens": [1, seq],
+          "reduced": deepseek_note + f"; prefill_32k's batch 32 and 32768 tokens cut to 1 and {seq}",
+          "params_dtype": str(cfg.activation_dtype), "moe_capacity": cfg.moe_capacity,
+          "init_s": init_s, "wall_s_prefill": wall, "tokens_per_s": seq / wall,
+          "peak_gb": peak / 1e9, "launches": prefill_launches,
+          "device_ms": {**split_ms, "source": "CUDA events around each _sdpa and moe_forward "
+                                              "call in a second, profiled run; rest: the "
+                                              "profile's device busy time less both"},
+          "profiled_run": split, "wall_s": time.perf_counter() - t_phase})
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # -- 17. xlstm-350m's serving path -------------------------------------------
+    # the whole model at full width, float32 params from seed 0, served at the
+    # reference's defaults; the first sLSTM and mLSTM layers' prefill forms
+    # against their decode recurrences
+    t_phase = time.perf_counter()
+    args = tserve.parse_args(["--arch", XLSTM])
+    where.update(path="xlstm_serve", app=XLSTM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    cfg, params, prompts = tserve.setup(args, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    res = tserve.serve(cfg, params, prompts, args.gen_tokens, args.max_len, dev,
+                       keep_prompt_logits=True)
+    tokens = torch.as_tensor(prompts, device=dev)
+    t = time.perf_counter()
+    prefill_logits = tsteps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_step_s = time.perf_counter() - t
+    step = tsteps.make_serve_step(cfg)
+    cache = ttf.init_cache(cfg, args.requests, args.max_len, dtype=torch.float32, device=dev)
+    step(params, cache, tokens[:, :1], 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        for i in range(1, 1 + PROFILED_DECODE_STEPS):
+            step(params, cache, tokens[:, :1], i)
+        torch.cuda.synchronize()
+    decode_us = device_us(prof)
+    decode_busy_ms = sum(decode_us.values()) / 1e3 / PROFILED_DECODE_STEPS
+    del cache, prof
+    # each layer kind's prefill form against its decode, float32
+    layer_checks = {}
+    for li, kind, forward_fn, decode_fn, init_fn in (
+            (0, "slstm", txl.slstm_forward, txl.slstm_decode, txl.slstm_init_state),
+            (1, "mlstm", txl.mlstm_forward, txl.mlstm_decode, txl.mlstm_init_state)):
+        spec = cfg.stacks[0][1][li]
+        check(spec.mixer == kind, f"xlstm's layer {li} is {spec.mixer}, not {kind}")
+        lp = _first(params["stack0"][f"l{li}"])
+        with torch.no_grad():
+            h_in = rms_norm(lp["norm1"], params["embed"][tokens].float())
+            out_prefill = forward_fn(lp["mixer"], h_in, cfg)
+            state = init_fn(cfg, args.requests, device=dev)
+            out_decode = torch.cat([decode_fn(lp["mixer"], h_in[:, i:i + 1], state, cfg)[0]
+                                    for i in range(args.prompt_len)], dim=1)
+        excess = (out_prefill - out_decode).abs() / (XLSTM_LAYER_ATOL
+                                                     + XLSTM_LAYER_RTOL * out_decode.abs())
+        layer_checks[kind] = {"layer": li, "max_abs_err": float((out_prefill - out_decode).abs().max()),
+                              "atol": XLSTM_LAYER_ATOL, "rtol": XLSTM_LAYER_RTOL,
+                              "tol_ratio": float(excess.max())}
+    # the whole model's prefill against its teacher-forced decode, printed and
+    # not checked: at random init the mLSTM's normaliser amplifies a float32
+    # rounding from layer to layer and from token to token, so the reference
+    # too parts its own prefill from its decode at this shape beyond its
+    # recurrent-family contract (PERF.md)
+    f32_fwd, f32_dec = float32_prefill_and_decode(cfg, params, prompts, args.max_len)
+    xlstm_launches = dict(ops.LAUNCHES)
+    where.update(path=None, app=None)
+    peak = torch.cuda.max_memory_allocated()
+
+    def recurrent_contract(fwd, dec):
+        """The reference's decode-vs-forward contract for recurrent families
+        (tests/test_models_smoke.py): the share of logits beyond 5e-2 +
+        5e-2 |forward|, and the argmax of the first positions."""
+        bad = (dec - fwd).abs() > (RECURRENT_ATOL + RECURRENT_RTOL * fwd.abs())
+        lead = RECURRENT_ARGMAX_POSITIONS
+        return {"diverged_share": float(bad.float().mean()),
+                "first_argmax_equal": bool(torch.equal(dec[:, :lead].argmax(-1),
+                                                       fwd[:, :lead].argmax(-1))),
+                "max_abs": float((dec - fwd).abs().max()),
+                "share_beyond_2e-2": float(((dec - fwd).abs() > SERVE_ATOL + SERVE_RTOL
+                                            * fwd.abs()).float().mean())}
+
+    whole_f32 = recurrent_contract(f32_fwd, f32_dec)
+    whole_bf16 = recurrent_contract(prefill_logits.float(), res.prompt_logits.float())
+    check(not any(xlstm_launches.values()),
+          f"xlstm's serving path launched {xlstm_launches}: its blocks have no kernel")
+    check(res.tokens.shape == (args.requests, args.gen_tokens)
+          and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(), "xlstm: bad generated tokens")
+    check(prefill_logits.shape == (args.requests, args.prompt_len, cfg.vocab)
+          and bool(torch.isfinite(prefill_logits).all()), "xlstm: prefill logits not finite")
+    for kind, row in layer_checks.items():
+        check(row["tol_ratio"] <= 1.0, f"xlstm's {kind} prefill differs from its decode: {row}")
+    step_ms = 1e3 * res.decode_s / args.gen_tokens
+    emit({"phase": "xlstm_serve", "arch": cfg.name, "reduced": "nothing",
+          "layers": cfg.n_layers, "params": sum(t.numel() for t in _leaves(params)),
+          "params_dtype": "float32", "activation_dtype": str(cfg.activation_dtype),
+          "requests": args.requests, "prompt_len": args.prompt_len,
+          "gen_tokens": args.gen_tokens, "max_len": args.max_len, "setup_s": setup_s,
+          "prefill_teacher_forced_s": res.prefill_s, "decode_s": res.decode_s,
+          "decode_tokens_per_s": res.tokens_per_s, "decode_step_ms": step_ms,
+          "decode_step_device_busy_ms": decode_busy_ms,
+          "decode_device_busy_share": decode_busy_ms / step_ms,
+          "decode_top_device_us": sorted(decode_us.items(), key=lambda kv: -kv[1])[:8],
+          "prefill_step_s": prefill_step_s, "layer_checks": layer_checks,
+          "prefill_vs_decode_unchecked": {
+              "float32": whole_f32, "bf16": whole_bf16,
+              "recurrent_contract": {"atol": RECURRENT_ATOL, "rtol": RECURRENT_RTOL,
+                                     "share_below": RECURRENT_SHARE,
+                                     "argmax_positions": RECURRENT_ARGMAX_POSITIONS}},
+          "sample": res.tokens[0][:16].tolist(), "launches": xlstm_launches,
+          "peak_gb": peak / 1e9, "wall_s": time.perf_counter() - t_phase})
+    del params, res, prefill_logits, f32_fwd, f32_dec, lp, h_in, out_prefill
+    del out_decode, state
+    torch.cuda.empty_cache()
+
+    # -- 18. xlstm-350m's bf16 prefill ---------------------------------------
+    # one prefill step at (1, XLSTM_PREFILL_TOKENS) in bf16 params: 64 mLSTM
+    # chunks a layer and the sLSTM's tokens one at a time; a profiled run on
+    # the first XLSTM_PROFILED_TOKENS splits its wall into torch's dispatch
+    # and the card's busy share
+    t_phase = time.perf_counter()
+    seq = XLSTM_PREFILL_TOKENS
+    where.update(path="xlstm_prefill", app=cfg.name)
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = ttf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=cfg.activation_dtype)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (1, seq)), device=dev)
+    prefill = tsteps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(logits.shape == (1, seq, cfg.vocab) and logits.dtype == cfg.activation_dtype,
+          f"xlstm: logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "xlstm: bf16 prefill logits not finite")
+    del logits
+    prefill_launches = dict(ops.LAUNCHES)
+    check(not any(prefill_launches.values()),
+          f"xlstm's prefill launched {prefill_launches}: its blocks have no kernel")
+    peak = torch.cuda.max_memory_allocated()
+    _, split = host_split(lambda: prefill(params, {"tokens": tokens[:, :XLSTM_PROFILED_TOKENS]}))
+    where.update(path=None, app=None)
+    n_chunks = -(-seq // cfg.xlstm_chunk)
+    n_slstm = sum(r for r, specs in cfg.stacks for spec in specs if spec.mixer == "slstm")
+    emit({"phase": "xlstm_prefill", "arch": cfg.name, "tokens": [1, seq],
+          "reduced": f"prefill_32k's batch 32 and 32768 tokens cut to 1 and {seq}",
+          "params_dtype": str(cfg.activation_dtype), "wall_s_prefill": wall,
+          "tokens_per_s": seq / wall, "mlstm_chunks_per_layer": n_chunks,
+          "slstm_layers": n_slstm, "slstm_steps": n_slstm * seq, "peak_gb": peak / 1e9,
+          "launches": prefill_launches, "profiled_tokens": [1, XLSTM_PROFILED_TOKENS],
+          "profiled_run": split, "wall_s": time.perf_counter() - t_phase})
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # -- 19. training on one device (the trainer's main path) --------------
     # launch.train.main's own loop at its defaults: a wrapper around the step
     # that make_train_step returns times each step (data excluded), counts
     # its K6 launches and profiles the last (host_split: its wall split into
@@ -1732,7 +2120,7 @@ def main() -> None:
           "launches": train_launches, "wall_s": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
 
-    # -- 16. training: card against host at reduced size -----------------------
+    # -- 20. training: card against host at reduced size -----------------------
     t_phase = time.perf_counter()
     where["path"] = "train_crosscheck"
     reset()
@@ -1857,7 +2245,7 @@ def main() -> None:
               if parted == ["/embed"] else "not identified"),
           "launches": crosscheck_launches, "wall_s": time.perf_counter() - t_phase})
 
-    # -- 17. kernels against their plain versions --------------------------
+    # -- 21. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card
@@ -1923,7 +2311,7 @@ def main() -> None:
             check(tol_ratio <= 1.0, f"{name} is {tol_ratio} times its tolerance")
 
     for name in shape_of:
-        check(name in largest, f"{name} was never called on the card by phases 2-16")
+        check(name in largest, f"{name} was never called on the card by phases 2-20")
 
     def by_path(name, work_of, terms_per_s):
         """Time, bound and launches of ``name`` at each path's largest call."""
@@ -2140,7 +2528,7 @@ def main() -> None:
         }, (q, k, v, kw, sdpa, *flash_work(q, k, **kw))
 
     for key in ("float32", "windowed", "lm_prefill", "train"):
-        check(key in flash_largest, f"flash attention had no {key} call in phases 10-16")
+        check(key in flash_largest, f"flash attention had no {key} call in phases 10-20")
     cases = {key: flash_case(key, call) for key, call in
              (("largest", largest["flash_attention"]), *flash_largest.items())}
     emit({"phase": "flash_checks", "checks": [row for row, _ in cases.values()]})

@@ -1,14 +1,21 @@
 """Attention of the LM substrate (the port of ``repro.models.attention``).
 
-GQA (grouped-query) with RoPE, an optional QKV bias (Qwen) and an optional
-sliding window (StarCoder2).  Prefill attention goes through
-``kernels.ops.flash_attention``: the hand-written CUDA kernel for a CUDA
-tensor, its plain PyTorch version for a CPU tensor.  Decode stays plain
-PyTorch, as the reference's decode reaches no Pallas kernel.
+* GQA (grouped-query) with RoPE, an optional QKV bias (Qwen) and an
+  optional sliding window (StarCoder2).  Prefill attention goes through
+  ``kernels.ops.flash_attention``: the hand-written CUDA kernel for a CUDA
+  tensor, its plain PyTorch version for a CPU tensor.
+* MLA (multi-head latent attention, DeepSeek-V3): a low-rank compressed KV
+  with a decoupled RoPE key shared by all heads.  Prefill runs the
+  decompressed form through the masked dense :func:`_sdpa` on every
+  device, as the reference does on every backend (its MLA reaches no
+  Pallas kernel); decode runs the absorbed form against the compressed
+  cache.
 
-KV caches are fixed-capacity buffers (B, Hkv, cap, D) written at an
-explicit length; with a sliding window the buffer is a ring of ``window``
-slots.  The port writes the cache in place and returns it.
+Decode stays plain PyTorch, as the reference's decode reaches no Pallas
+kernel.  KV caches are fixed-capacity buffers written at an explicit
+length: GQA's (B, Hkv, cap, D), with a sliding window a ring of ``window``
+slots; MLA's latent (B, max_len, kv_rank) and RoPE key (B, max_len,
+rope_dim).  The port writes a cache in place and returns it.
 """
 
 from __future__ import annotations
@@ -20,6 +27,52 @@ import torch
 from .. import device as device_mod
 from ..kernels import ops
 from .blocks import apply_rope, init_linear, mm
+
+
+# ======================================================================
+# dense masked attention (the reference's _sdpa), MLA's path on every device
+# ======================================================================
+_SDPA_CHUNK = 2048
+
+
+def _sdpa_block(q, k, v, *, causal, window, q_offset, kv_len, scale):
+    """Scores, softmax and the weighted sum in float32, over one block of
+    query rows starting at ``q_offset``; a fully masked row gives 0."""
+    sq, skv = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s.mul_(scale)
+    q_idx = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kv_idx = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_idx >= kv_idx
+    if window and window > 0:
+        mask &= (q_idx - kv_idx) < window
+    if kv_len is not None:
+        mask &= kv_idx < kv_len
+    s.masked_fill_(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    p = torch.where(torch.isnan(p), 0.0, p)          # fully masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _sdpa(q, k, v, *, causal, window, q_offset=0, kv_len=None):
+    """q: (B, H, Sq, D), k: (B, H, Skv, D), v: (B, H, Skv, Dv) -> (B, H, Sq, Dv)
+    in q's type, softmax in float32, scale ``1/sqrt(D)``.
+
+    Queries go in blocks of ``_SDPA_CHUNK`` rows, as the reference's: a
+    block's float32 scores are (B, H, 2048, Skv).  ``v``'s head dim may
+    differ from q's (MLA's 128 against 192)."""
+    sq = q.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(causal=causal, window=window, kv_len=kv_len, scale=scale)
+    if sq <= _SDPA_CHUNK:
+        return _sdpa_block(q, k, v, q_offset=q_offset, **kw)
+    return torch.cat([
+        _sdpa_block(q[:, :, start:start + _SDPA_CHUNK], k, v, q_offset=q_offset + start, **kw)
+        for start in range(0, sq, _SDPA_CHUNK)
+    ], dim=2)
 
 
 def _project(p, x, name, n_heads, dh):
@@ -106,3 +159,96 @@ def gqa_decode(p, x, cache, length: int, cfg):
     o = o.to(x.dtype).reshape(b, 1, hq * dh)
     return mm(o, p["wo"]), cache
 
+
+# ======================================================================
+# MLA (DeepSeek-V3)
+# ======================================================================
+def init_mla(gen, cfg, *, stack=(), dtype=torch.float32):
+    d, h = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.mla_q_rank, cfg.mla_kv_rank
+    dn, dr, dv = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    return {
+        "wq_a": init_linear(gen, d, rq, stack=stack, dtype=dtype),
+        "wq_b": init_linear(gen, rq, h * (dn + dr), stack=stack, dtype=dtype),
+        "wkv_a": init_linear(gen, d, rkv + dr, stack=stack, dtype=dtype),
+        "wk_b": init_linear(gen, rkv, h * dn, stack=stack, dtype=dtype),
+        "wv_b": init_linear(gen, rkv, h * dv, stack=stack, dtype=dtype),
+        "wo": init_linear(gen, h * dv, d, stack=stack, dtype=dtype),
+    }
+
+
+def _mla_query(p, x, cfg, positions):
+    """(q_nope (B, h, S, dn), q_rope (B, h, S, dr) rotated)."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim
+    q = mm(mm(x, p["wq_a"]), p["wq_b"]).reshape(b, s, h, dn + dr).transpose(1, 2)
+    return q[..., :dn], apply_rope(q[..., dn:], positions[:, None, :], theta=cfg.rope_theta)
+
+
+def _mla_latent(p, x, cfg, positions):
+    """(c_kv (B, S, kv_rank), k_rope (B, 1, S, dr) rotated: one head for all)."""
+    rkv = cfg.mla_kv_rank
+    kv = mm(x, p["wkv_a"])
+    k_rope = apply_rope(kv[:, None, :, rkv:], positions[:, None, :], theta=cfg.rope_theta)
+    return kv[..., :rkv], k_rope
+
+
+def mla_forward(p, x, cfg, *, positions=None):
+    """Training / prefill MLA in the decompressed form. x: (B, S, D)."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_query(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = mm(c_kv, p["wk_b"]).reshape(b, s, h, dn).transpose(1, 2)
+    v = mm(c_kv, p["wv_b"]).reshape(b, s, h, dv).transpose(1, 2)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    # the shared RoPE key is broadcast over the heads, not copied per head
+    k_full = torch.cat([k_nope, k_rope.expand(b, h, s, dr)], dim=-1)
+    o = _sdpa(q_full, k_full, v, causal=True, window=0)     # scale 1/sqrt(dn + dr)
+    return mm(o.transpose(1, 2).reshape(b, s, h * dv), p["wo"])
+
+
+def mla_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+    """The compressed cache: the latent ``c_kv`` and the shared RoPE key
+    (kv_rank + rope_dim values a token); ``device=None`` is the card."""
+    device = device_mod.resolve(device)
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.mla_kv_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.mla_rope_dim), dtype=dtype, device=device),
+    }
+
+
+def mla_decode(p, x, cache, length: int, cfg):
+    """One-token decode in the absorbed form against the compressed cache.
+    x: (B, 1, D).  The new latent and RoPE key are written in place at
+    ``min(length, max_len - 1)``, where the reference's
+    ``dynamic_update_slice`` clamps them, and keys up to ``length`` attend."""
+    b = x.shape[0]
+    h, dn, dr, dv = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    rkv = cfg.mla_kv_rank
+    length = int(length)
+    pos = torch.full((b, 1), length, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_query(p, x, cfg, pos)               # (B, h, 1, dn), (B, h, 1, dr)
+    c_new, kr_new = _mla_latent(p, x, cfg, pos)
+
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    slot = min(length, c_kv.shape[1] - 1)
+    c_kv[:, slot] = c_new[:, 0]
+    k_rope[:, slot] = kr_new[:, 0, 0]
+
+    # absorbed scores: q_nope . (W_kb c) = (q_nope W_kb^T) . c
+    ckv = c_kv.float()
+    wk = p["wk_b"].reshape(rkv, h, dn).float()
+    q_lat = torch.einsum("bhod,rhd->bhor", q_nope.float(), wk)          # (B, h, 1, rkv)
+    s_lat = torch.einsum("bhor,bsr->bhos", q_lat, ckv)                  # (B, h, 1, S)
+    s_rope = torch.einsum("bhod,bsd->bhos", q_rope.float(), k_rope.float())
+    s_all = (s_lat + s_rope) * (1.0 / math.sqrt(dn + dr))
+    s_all[..., length + 1:] = float("-inf")
+    prob = torch.softmax(s_all, dim=-1)
+    ctx_lat = torch.einsum("bhos,bsr->bhor", prob, ckv)
+    wv = p["wv_b"].reshape(rkv, h, dv).float()
+    o = torch.einsum("bhor,rhd->bhod", ctx_lat, wv)
+    o = o.to(x.dtype).transpose(1, 2).reshape(b, 1, h * dv)
+    return mm(o, p["wo"]), cache

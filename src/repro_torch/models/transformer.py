@@ -16,11 +16,11 @@ The loop also lets the residual stream change type between layers, as the
 reference's unrolled stacks do: with bf16 activations and float32 weights
 the first layer's ``x + h`` promotes the stream to float32.
 
-The port has the ``gqa`` and ``mamba`` mixers and the ``swiglu``,
-``gelu`` and ``moe`` FFNs: every layer kind of the dense GQA models and of
-jamba.  The ``mla`` and ``mlstm``/``slstm`` mixers raise
-``NotImplementedError``; they wait for later slices (ROADMAP.md, queue 1,
-item 8).  ``logical_shard`` is the identity on one card and is left out.
+Every layer kind of the reference is ported: the ``gqa``, ``mla``,
+``mamba``, ``mlstm`` and ``slstm`` mixers and the ``swiglu``, ``gelu`` and
+``moe`` FFNs (or none); an unknown kind raises ``ValueError``, as the
+reference's.  ``logical_shard`` is the identity on one card and is left
+out.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ..configs.base import ArchConfig, LayerSpec
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
+from . import xlstm as xl
 from .blocks import (
     cross_entropy,
     gelu_ffn,
@@ -46,26 +47,23 @@ from .blocks import (
     truncated_normal,
 )
 
-_MIXERS = ("gqa", "mamba")
-_FFNS = ("swiglu", "gelu", "moe", "none")
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    for _, specs in cfg.stacks:
-        for spec in specs:
-            if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer kind ({spec.mixer}, {spec.ffn}) is not ported "
-                    f"yet; this slice has mixers {_MIXERS} and FFNs {_FFNS} "
-                    "(ROADMAP.md, queue 1, item 8)"
-                )
-
 
 # ======================================================================
 # parameter init
 # ======================================================================
 def _init_layer(gen, spec: LayerSpec, cfg: ArchConfig, stack, dtype):
-    init_mixer = attn.init_gqa if spec.mixer == "gqa" else mam.init_mamba
+    if spec.mixer == "gqa":
+        init_mixer = attn.init_gqa
+    elif spec.mixer == "mla":
+        init_mixer = attn.init_mla
+    elif spec.mixer == "mamba":
+        init_mixer = mam.init_mamba
+    elif spec.mixer == "mlstm":
+        init_mixer = xl.init_mlstm
+    elif spec.mixer == "slstm":
+        init_mixer = xl.init_slstm
+    else:
+        raise ValueError(spec.mixer)
     p: dict = {"mixer": init_mixer(gen, cfg, stack=stack, dtype=dtype)}
     if spec.ffn == "swiglu":
         p["ffn"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, stack=stack, dtype=dtype)
@@ -73,6 +71,8 @@ def _init_layer(gen, spec: LayerSpec, cfg: ArchConfig, stack, dtype):
         p["ffn"] = init_gelu_ffn(gen, cfg.d_model, cfg.d_ff, stack=stack, bias=True, dtype=dtype)
     elif spec.ffn == "moe":
         p["ffn"] = moe_mod.init_moe(gen, cfg, stack=stack, dtype=dtype)
+    elif spec.ffn != "none":
+        raise ValueError(spec.ffn)
 
     def ones():
         return torch.ones((*stack, cfg.d_model), dtype=dtype, device=gen.device)
@@ -92,7 +92,6 @@ def _init_layer(gen, spec: LayerSpec, cfg: ArchConfig, stack, dtype):
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32):
     """Random parameters on ``gen``'s device, in the reference's layout."""
-    _check_ported(cfg)
     params: dict = {
         "embed": truncated_normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
@@ -137,8 +136,16 @@ def _apply_layer(p, spec: LayerSpec, x, cfg, positions):
     h = _norm(p, "norm1", x, cfg)
     if spec.mixer == "gqa":
         h = attn.gqa_forward(p["mixer"], h, cfg, positions=positions)
-    else:
+    elif spec.mixer == "mla":
+        h = attn.mla_forward(p["mixer"], h, cfg, positions=positions)
+    elif spec.mixer == "mamba":
         h = mam.mamba_forward(p["mixer"], h, cfg)
+    elif spec.mixer == "mlstm":
+        h = xl.mlstm_forward(p["mixer"], h, cfg)
+    elif spec.mixer == "slstm":
+        h = xl.slstm_forward(p["mixer"], h, cfg)
+    else:
+        raise ValueError(spec.mixer)
     return _ffn(p, spec, x + h, cfg)
 
 
@@ -200,7 +207,6 @@ def _logits(params, x, cfg):
 
 def forward(params, batch: dict, cfg: ArchConfig):
     """batch: tokens (B,S) [+ frontend_embeds (B,N,D)] -> (logits (B,S,V), aux)."""
-    _check_ported(cfg)
     # F.embedding, not indexing: its backward adds each token's row in a
     # fixed order, where indexing's (index_put_ with accumulate) adds them
     # with atomics on the CPU, so two runs part and a restart is not exact
@@ -229,17 +235,25 @@ def loss_fn(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 # decode caches
 # ======================================================================
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    """Per layer: a GQA layer's K and V buffers in ``dtype``, a Mamba
-    layer's float32 recurrent state (as the reference's)."""
-    _check_ported(cfg)
+    """Per layer: an attention layer's cache in ``dtype`` (GQA's K and V,
+    MLA's latent and RoPE key), a Mamba or xLSTM layer's float32 recurrent
+    state (as the reference's)."""
     cache = {}
     for si, (repeat, specs) in enumerate(cfg.stacks):
         group = {}
         for li, spec in enumerate(specs):
             if spec.mixer == "gqa":
                 one = attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
-            else:
+            elif spec.mixer == "mla":
+                one = attn.mla_init_cache(cfg, batch, max_len, dtype, device)
+            elif spec.mixer == "mamba":
                 one = mam.mamba_init_state(cfg, batch, device=device)
+            elif spec.mixer == "mlstm":
+                one = xl.mlstm_init_state(cfg, batch, device=device)
+            elif spec.mixer == "slstm":
+                one = xl.slstm_init_state(cfg, batch, device=device)
+            else:
+                raise ValueError(spec.mixer)
             group[f"l{li}"] = {k: t[None].repeat(repeat, *[1] * t.dim()) for k, t in one.items()}
         cache[f"stack{si}"] = group
     return cache
@@ -249,8 +263,16 @@ def _decode_layer(p, spec: LayerSpec, x, cache, length, cfg):
     h = _norm(p, "norm1", x, cfg)
     if spec.mixer == "gqa":
         h, cache = attn.gqa_decode(p["mixer"], h, cache, length, cfg)
-    else:
+    elif spec.mixer == "mla":
+        h, cache = attn.mla_decode(p["mixer"], h, cache, length, cfg)
+    elif spec.mixer == "mamba":
         h, cache = mam.mamba_decode(p["mixer"], h, cache, cfg)
+    elif spec.mixer == "mlstm":
+        h, cache = xl.mlstm_decode(p["mixer"], h, cache, cfg)
+    elif spec.mixer == "slstm":
+        h, cache = xl.slstm_decode(p["mixer"], h, cache, cfg)
+    else:
+        raise ValueError(spec.mixer)
     return _ffn(p, spec, x + h, cfg)[0], cache
 
 
@@ -259,7 +281,6 @@ def decode_step(params, tokens, cache, length: int, cfg: ArchConfig):
 
     Returns (logits (B, 1, V), cache); the cache is updated in place.
     """
-    _check_ported(cfg)
     x = params["embed"][tokens].to(cfg.activation_dtype)
     for sk, r, lk, spec, lp in _layers(params, cfg):
         x, _ = _decode_layer(lp, spec, x, _index(cache[sk][lk], r), length, cfg)
