@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's compile-and-admit, joint placement and serving,
 design-space sweep, sharded λ-search, SNN execution, LM serving (dense GQA,
-jamba's hybrid, deepseek-v3's MLA and MoE, xlstm-350m) and LM training paths
-on one GPU.
+jamba's hybrid, deepseek-v3's MLA and MoE, xlstm-350m), LM training and LM
+mesh (DTensor training, expert parallelism, meshed serving, re-mesh
+restore, shape-only init) paths on one GPU.
 
 Run from the repository root:  ``PYTHONPATH=src python3 chip_smoke.py``
 (the script also finds ``src/`` beside itself).  It needs one CUDA device
@@ -148,9 +149,40 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               twice on the card (the leaves that part, if any, are named);
               the reduced restart: 6 straight steps twice, and 3 steps, a
               checkpoint and 3 resumed steps
-21. kernels   every kernel against its plain PyTorch version on the card, with
+21. mesh_train the train phase again under the LM mesh: a world of one NCCL
+              rank that the script makes (and destroys after phase 25),
+              make_local_mesh()'s (1, 1) ("data", "model") mesh, and
+              launch.train.main(mesh=) at the train phase's arguments, seed
+              and batches: params and moments DTensors laid out by
+              params_shardings / opt_state_shardings, each batch by
+              batch_shardings; K6 runs on each rank's shard under local_map
+              and must launch; losses and updated params equal the train
+              phase's bit for bit, else within MESH_TRAIN_RTOL with the
+              parted leaves printed; step wall and the card's busy share
+22. remesh_restore mesh_train's params and moments saved, and restored with
+              load_checkpoint(shardings=) onto a ("data",) mesh of one: every
+              leaf bit-equal (it comes before phase 23, while the card holds
+              mesh_train's state and nothing larger)
+23. mesh_moe  deepseek-moe-16b cut to its dense layer and one MoE layer at full
+              width (64 experts top-6, 2 shared, moe_d_ff 1408, d_model 2048),
+              float32 params and activations from seed 0, one batch of the
+              train phase's shape:
+              loss and gradients through _dispatch_shard_map on the mesh
+              against the gather path without one (MESH_MOE_LOSS_RTOL,
+              MESH_MOE_GRAD_RTOL), then one train step under the mesh
+24. mesh_serve deepseek_serve's cut, params and prompts served by
+              serve(mesh=): params_shardings(inference=True), inference_ep,
+              the caches by cache_shardings; the tokens equal
+              deepseek_serve's; decode step time and busy share beside
+              deepseek_serve's; no kernel of ops launches
+25. abstract  init_abstract, input_specs and decode_cache_specs of the ten
+              architectures at full size and the four shape cells: every
+              tensor on meta, no allocation by the card's allocator (its
+              count of allocations, memory_allocated() and its peak all
+              unchanged); the parameter counts printed
+26. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
-              2-20: K1-K5 bit-identical; flash attention, also at its largest
+              2-20 (the mesh phases' launches count on the kernels line): K1-K5 bit-identical; flash attention, also at its largest
               float32 call, its largest windowed call, its largest
               dense-model prefill call (qwen2-1.5b's 32k, timed against SDPA
               as the largest is) and its largest train call (with the time
@@ -174,8 +206,9 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               and the 10 joint_serving and 10 sharded shapes with the most
               launches, with the launch-weighted ``rule2_ms``)
 
-Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-20) and
-read just after, and reported per path (phases 15-18 must launch none);
+Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-21,
+23, 24) and read just after, and reported per path (phases 15-18 and 24 must
+launch none);
 launches made to compare or time kernels do not count.
 """
 
@@ -183,6 +216,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import io
 import json
 import math
@@ -305,6 +339,19 @@ CROSS_BATCH, CROSS_SEQ, RESTART_STEPS = 2, 64, 6
 #: rounds lies within this many of its ulps of a rounding boundary (the
 #: value's own ulp, and its block scale's)
 INT8_BOUNDARY_ULPS = 2
+#: the LM mesh phases (21-25) run in a world of one rank of this backend,
+#: on make_local_mesh()'s (1, 1) ("data", "model") mesh
+MESH_BACKEND = "nccl"
+#: mesh_train against train: bit for bit, or within this relative difference
+#: where DTensor reroutes an op (the parted leaves are printed)
+MESH_TRAIN_RTOL = 1e-6
+#: mesh_moe: deepseek-moe-16b cut to its dense layer and one MoE layer at full
+#: width; the expert-parallel loss against gather's (relative), and each
+#: gradient leaf's largest difference as a share of the leaf's largest
+#: magnitude: the combine adds the k choices one at a time where gather sums
+#: them in one reduction, and the rest follows from that rounding
+MOE_ARCH = "deepseek-moe-16b"
+MESH_MOE_LOSS_RTOL, MESH_MOE_GRAD_RTOL = 1e-6, 1e-4
 #: host calls that wait for the card (syncs, and copies out of it)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpyAsync", "cudaMemcpy")
@@ -502,7 +549,13 @@ def main() -> None:
 
     import dataclasses
 
-    from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch, reduced
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import (ARCH_NAMES, SHAPES, decode_cache_specs, get_arch,
+                                     input_specs, reduced)
     from repro_torch.core import (apps, engine, explore, export, lif, maxplus, pipeline,
                                   runtime, serving, workloads)
     from repro_torch.core.hardware import DYNAP_SE, DYNAP_SE_1024, DYNAP_SE_16
@@ -513,6 +566,8 @@ def main() -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import maxplus_bellman as kbell
     from repro_torch.launch import serve as tserve
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharding as tsh
     from repro_torch.launch.sharding import Mesh
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as ttrain
@@ -607,7 +662,7 @@ def main() -> None:
             launches[k][path] = v
 
     # Every wrapper is spied on: per path, the shapes it was given, and the
-    # inputs of its largest call, on which phase 21 times and checks it.
+    # inputs of its largest call, on which phase 26 times and checks it.
     where = {"path": None, "app": None}
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
@@ -1771,6 +1826,9 @@ def main() -> None:
           "param_gb": {k: v / 1e9 for k, v in sorted(groups.items())},
           "init_peak_gb": init_peak / 1e9, "peak_gb": peak / 1e9,
           "wall_s": time.perf_counter() - t_phase})
+    # what mesh_serve must reproduce under the LM mesh
+    deepseek_ref = {"cfg": cfg, "tokens": res.tokens, "step_ms": step_ms,
+                    "busy_ms": decode_busy_ms, "peak_gb": peak / 1e9}
     del params, res, prefill_logits, fwd, dec, lp, h_in, out_prefill, out_decode, mla_cache
     torch.cuda.empty_cache()
 
@@ -2003,7 +2061,7 @@ def main() -> None:
           and (train_args.batch, train_args.seq_len) == (8, 256),
           "train.main's defaults are not batch 8 x seq 256, float32 moments, remat full")
     where.update(path="train", app=train_cfg.name)
-    step_rows, grad_ok, bwd_events, profiled = [], [], [], {}
+    step_rows, grad_ok, bwd_events, profiled, train_final = [], [], [], {}, {}
     leaf_names, n_params = [], []
     make_train_step, loss_and_grads = tsteps.make_train_step, tsteps.loss_and_grads
     flash_backward = ops.FlashAttentionFn.backward
@@ -2036,31 +2094,44 @@ def main() -> None:
         bwd_events.append((a, b))
         return out
 
-    def timed_make(*a, **kw):
-        step_fn = make_train_step(*a, **kw)
+    def timed_steps(rows, profiled, keep, row_extra=dict):
+        """A make_train_step whose steps are timed (data excluded), their K6
+        launches counted and step PROFILED_TRAIN_STEP profiled by host_split,
+        one row each in ``rows`` with what ``row_extra()`` adds after the
+        step; ``keep(out)`` sees each step's result."""
+        def make(*a, **kw):
+            step_fn = make_train_step(*a, **kw)
 
-        def step(params, opt_state, batch):
-            i, k6 = len(step_rows), ops.LAUNCHES["flash_attention"]
-            bwd_events.clear()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if i != PROFILED_TRAIN_STEP:
-                out = step_fn(params, opt_state, batch)
+            def step(params, opt_state, batch):
+                i, k6 = len(rows), ops.LAUNCHES["flash_attention"]
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t
-            else:
-                out, split = host_split(lambda: step_fn(params, opt_state, batch))
-                wall = split["wall_s"]
-                profiled.update(step=i, **split)
-            step_rows.append({
-                "step": i, "wall_s": wall, "profiled": i == PROFILED_TRAIN_STEP,
-                "k6_launches": ops.LAUNCHES["flash_attention"] - k6,
-                "k6_backward_recompute_calls": len(bwd_events),
-                "k6_backward_recompute_ms": sum(x.elapsed_time(y) for x, y in bwd_events)})
-            return out
+                t = time.perf_counter()
+                if i != PROFILED_TRAIN_STEP:
+                    out = step_fn(params, opt_state, batch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                else:
+                    out, split = host_split(lambda: step_fn(params, opt_state, batch))
+                    wall = split["wall_s"]
+                    profiled.update(step=i, **split)
+                rows.append({"step": i, "wall_s": wall, "profiled": i == PROFILED_TRAIN_STEP,
+                             "k6_launches": ops.LAUNCHES["flash_attention"] - k6, **row_extra()})
+                keep(out)
+                return out
 
-        return step
+            return step
 
+        return make
+
+    def recompute_row():
+        row = {"k6_backward_recompute_calls": len(bwd_events),
+               "k6_backward_recompute_ms": sum(x.elapsed_time(y) for x, y in bwd_events)}
+        bwd_events.clear()
+        return row
+
+    # the last step's params: what mesh_train must reproduce
+    timed_make = timed_steps(step_rows, profiled, lambda out: train_final.update(params=out[0]),
+                             recompute_row)
     tsteps.make_train_step, tsteps.loss_and_grads = timed_make, checked_grads
     ops.FlashAttentionFn.backward = staticmethod(timed_backward)
     reset()
@@ -2245,7 +2316,299 @@ def main() -> None:
               if parted == ["/embed"] else "not identified"),
           "launches": crosscheck_launches, "wall_s": time.perf_counter() - t_phase})
 
-    # -- 21. kernels against their plain versions --------------------------
+    # -- 21-25. the LM mesh: one rank's world, the local (1, 1) mesh -------------
+    # The phases run on DTensors over a world of one NCCL rank that the script
+    # makes here and destroys after phase 25.  remesh_restore comes second:
+    # it saves and restores mesh_train's state before the MoE and serve cuts
+    # take the card's memory.  The wrappers' spies record no call here
+    # (``where["path"]`` stays None), so phase 26 times the calls of phases
+    # 2-20 as before; ops.LAUNCHES counts every launch.
+    dist.init_process_group(MESH_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
+    mesh = tmesh.make_local_mesh()
+
+    # -- 21. mesh_train: the train phase again under the LM mesh ------------
+    # launch.train.main(mesh=) at the train phase's arguments: params and
+    # moments DTensors by params_shardings / opt_state_shardings, each batch
+    # by batch_shardings, the step under use_mesh; K6 runs on each rank's
+    # shard through local_map
+    t_phase = time.perf_counter()
+    mesh_rows, mesh_profiled, mesh_final = [], {}, {}
+    tsteps.make_train_step = timed_steps(
+        mesh_rows, mesh_profiled, lambda out: mesh_final.update(params=out[0], opt_state=out[1]))
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            mesh_losses = ttrain.main(train_argv, device=dev, mesh=mesh)
+    finally:
+        tsteps.make_train_step = make_train_step
+    mesh_peak = torch.cuda.max_memory_allocated()
+    mesh_train_launches = dict(ops.LAUNCHES)
+    read_into("mesh_train")
+    check(isinstance(tree_leaves(mesh_final["params"])[0], DTensor)
+          and isinstance(tree_leaves(mesh_final["opt_state"]["m"])[0], DTensor),
+          "mesh_train's params and moments are not DTensors")
+    check(mesh_train_launches["flash_attention"] > 0, "K6 did not launch under the LM mesh")
+    parted, worst_rel = [], 0.0
+    for (name, _), got, want in zip(leaf_rows(train_final["params"]),
+                                    tree_leaves(mesh_final["params"]),
+                                    tree_leaves(train_final["params"])):
+        got = tsh.full(got)
+        if not torch.equal(got, want):
+            rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            parted.append([name, rel])
+            worst_rel = max(worst_rel, rel)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses))
+    check(len(mesh_losses) == len(losses) and loss_rel <= MESH_TRAIN_RTOL,
+          f"mesh_train's losses {mesh_losses} against the train phase's {losses}")
+    check(worst_rel <= MESH_TRAIN_RTOL,
+          f"mesh_train's params part from the train phase's: {parted[:8]}")
+    mesh_walls = [r["wall_s"] for r in mesh_rows[1:] if not r["profiled"]]
+    mesh_step_s = statistics.mean(mesh_walls)
+    emit({"phase": "mesh_train", "arch": train_cfg.name, "mesh": tsh.axis_sizes(mesh),
+          "backend": MESH_BACKEND, "steps": len(mesh_rows), "losses": mesh_losses,
+          "losses_bit_equal_to_train": mesh_losses == losses, "loss_max_rel_diff": loss_rel,
+          "params_bit_equal_to_train": not parted, "rerouted_leaves": parted,
+          "params_max_rel_diff": worst_rel, "tolerance_rel": MESH_TRAIN_RTOL,
+          "step_wall_s": mesh_step_s, "step_walls_s": [r["wall_s"] for r in mesh_rows],
+          "train_step_wall_s": step_s, "dispatch_cost_s": mesh_step_s - step_s,
+          "step_wall_from": "mean of the unprofiled steps after the first; data excluded",
+          "tokens_per_s": tokens / mesh_step_s,
+          "k6_launches_per_step": [r["k6_launches"] for r in mesh_rows],
+          "profiled_step": mesh_profiled, "peak_gb": mesh_peak / 1e9,
+          "launches": mesh_train_launches, "wall_s": time.perf_counter() - t_phase})
+    del train_final
+    torch.cuda.empty_cache()
+
+    # -- 22. remesh_restore: mesh_train's state onto a ("data",) mesh of one ---
+    t_phase = time.perf_counter()
+    state = (mesh_final["params"], mesh_final["opt_state"])
+    data_mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+    restore_sh = tree_map(lambda t: tsh.NamedSharding(data_mesh, tsh._fit(
+        data_mesh, t.shape, ("data",) + (None,) * (t.dim() - 1))), state)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t = time.perf_counter()
+        save_checkpoint(ckpt_dir, TRAIN_STEPS, state)
+        save_s = time.perf_counter() - t
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(ckpt_dir).rglob("*") if f.is_file())
+        t = time.perf_counter()
+        restored, _ = load_checkpoint(ckpt_dir, TRAIN_STEPS, state, shardings=restore_sh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    leaves_r, leaves_s = tree_leaves(restored), tree_leaves(state)
+    check(all(isinstance(r, DTensor) and r.device_mesh == data_mesh for r in leaves_r),
+          "the restored leaves do not lie on the data mesh")
+    unequal = [i for i, (r, s0) in enumerate(zip(leaves_r, leaves_s))
+               if not torch.equal(tsh.full(r), tsh.full(s0))]
+    check(not unequal, f"the restore differs from mesh_train's state at leaves {unequal[:8]}")
+    emit({"phase": "remesh_restore", "saved_from": tsh.axis_sizes(mesh),
+          "restored_onto": tsh.axis_sizes(data_mesh), "leaves": len(leaves_r),
+          "bytes": ckpt_bytes, "save_s": save_s, "load_s": load_s, "bit_equal": True,
+          "wall_s": time.perf_counter() - t_phase})
+    del state, restored, leaves_r, leaves_s, mesh_final
+    torch.cuda.empty_cache()
+
+    # -- 23. mesh_moe: expert parallelism against gather -----------------------
+    # deepseek-moe-16b cut to its dense layer and one MoE layer at full width
+    # (64 experts, top-6, 2 shared, moe_d_ff 1408), float32 params from seed
+    # 0, one batch of the train phase's shape: loss and gradients through
+    # _dispatch_shard_map on the (1, 1) mesh against the gather path without
+    # a mesh, then one whole train step under the mesh
+    t_phase = time.perf_counter()
+    full_moe = get_arch(MOE_ARCH)
+    # float32 activations: with the config's bf16 ones the backward rounds
+    # the first layer's gradients to bf16, and the combine's last-bit
+    # difference flips some of those roundings (as deepseek_serve holds its
+    # two forms in float32)
+    moe_cfg = dataclasses.replace(full_moe, stacks=tuple((1, sp) for _, sp in full_moe.stacks),
+                                  dtype="float32")
+    moe_note = (f"depth: the dense layer and 1 of the {full_moe.stacks[1][0]} MoE layers "
+                f"({moe_cfg.n_layers} of {full_moe.n_layers}), widths in full; float32 "
+                f"activations for the config's {full_moe.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    moe_params = ttf.init_params(moe_cfg, torch.Generator(device=dev).manual_seed(0))
+    moe_batch = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(DataConfig(
+        vocab=moe_cfg.vocab, seq_len=train_args.seq_len,
+        global_batch=train_args.batch)).batch(0).items()}
+    dispatched = collections.Counter()
+    ep, gather = tmoe._dispatch_shard_map, tmoe._dispatch_gather
+
+    def count(name, fn):
+        def call(*a, **kw):
+            dispatched[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    tmoe._dispatch_shard_map = count("shard_map", ep)
+    tmoe._dispatch_gather = count("gather", gather)
+    try:
+        g_loss, g_grads = tsteps.loss_and_grads(moe_params, moe_batch, moe_cfg)
+        plain_dispatch = dict(dispatched)
+        d_params = tsh.distribute(moe_params, tsh.params_shardings(moe_params, mesh))
+        d_batch = tsh.distribute(moe_batch, tsh.batch_shardings(moe_batch, mesh))
+        dispatched.clear()
+        reset()             # the gather pass above is the comparison: its launches do not count
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with tsh.use_mesh(mesh):
+            e_loss, e_grads = tsteps.loss_and_grads(d_params, d_batch, moe_cfg)
+            torch.cuda.synchronize()
+            ep_grad_s = time.perf_counter() - t
+            mesh_dispatch = dict(dispatched)
+            grad_rel = {}
+            for (name, _), a, b in zip(leaf_rows(g_grads), tree_leaves(e_grads),
+                                       tree_leaves(g_grads)):
+                grad_rel[name] = float((tsh.full(a) - b).abs().max()) / max(
+                    float(b.abs().max()), 1e-30)
+            del e_grads
+            opt_m = AdamWConfig(lr=1e-3)
+            st = adamw_init(moe_params, opt_m)
+            d_state = tsh.distribute(st, tsh.opt_state_shardings(st, moe_params, mesh))
+            new_p, new_state, m = make_train_step(moe_cfg, opt_m)(d_params, d_state, d_batch)
+            step_finite = all(bool(torch.isfinite(tsh.full(x)).all()) for x in tree_leaves(new_p))
+            step_loss = float(tsh.full(m["loss"]))
+    finally:
+        tmoe._dispatch_shard_map, tmoe._dispatch_gather = ep, gather
+    moe_peak = torch.cuda.max_memory_allocated()
+    moe_launches = dict(ops.LAUNCHES)
+    read_into("mesh_moe")
+    loss_rel = abs(float(tsh.full(e_loss)) - float(g_loss)) / abs(float(g_loss))
+    worst = max(grad_rel, key=grad_rel.get)
+    # (remat "full" dispatches again in the backward's recompute)
+    check(set(plain_dispatch) == {"gather"} and set(mesh_dispatch) == {"shard_map"},
+          f"dispatches: {plain_dispatch} without the mesh, {mesh_dispatch} under it")
+    check(loss_rel <= MESH_MOE_LOSS_RTOL,
+          f"mesh_moe's expert-parallel loss {float(tsh.full(e_loss))} against gather's "
+          f"{float(g_loss)}")
+    check(grad_rel[worst] <= MESH_MOE_GRAD_RTOL,
+          f"mesh_moe: gradient {worst} differs by {grad_rel[worst]} of its largest magnitude")
+    check(step_finite and abs(step_loss - float(tsh.full(e_loss))) <= MESH_MOE_LOSS_RTOL * abs(
+        step_loss),
+          f"mesh_moe's train step: loss {step_loss}, params finite {step_finite}")
+    # the FSDP gather's backward (a reduce-scatter) through the NCCL backend:
+    # on the (1, 1) mesh the experts are whole and EP gathers nothing
+    w_fsdp = torch.randn(4, 6, device=dev, requires_grad=True)
+    g_fsdp = torch.randn(4, 6, device=dev)
+    (tmoe._AllGather.apply(w_fsdp, dist.group.WORLD, 1) * g_fsdp).sum().backward()
+    check(torch.equal(w_fsdp.grad, g_fsdp), "the FSDP gather's backward on NCCL is not the "
+          "identity on a world of one")
+    emit({"phase": "mesh_moe", "arch": moe_cfg.name, "reduced": moe_note,
+          "experts": moe_cfg.moe_experts, "top_k": moe_cfg.moe_top_k,
+          "shared": moe_cfg.moe_shared, "moe_d_ff": moe_cfg.moe_d_ff, "d_model": moe_cfg.d_model,
+          "params": sum(t.numel() for t in tree_leaves(moe_params)), "params_dtype": "float32",
+          "batch": [train_args.batch, train_args.seq_len], "mesh": tsh.axis_sizes(mesh),
+          "dispatch": {"without_mesh": plain_dispatch, "under_mesh": mesh_dispatch},
+          "loss_gather": float(g_loss), "loss_expert_parallel": float(tsh.full(e_loss)),
+          "loss_rel_diff": loss_rel, "loss_rtol": MESH_MOE_LOSS_RTOL,
+          "grad_rel_diff_max": grad_rel[worst], "grad_rel_diff_worst_leaf": worst,
+          "grad_rtol_of_leaf_max": MESH_MOE_GRAD_RTOL,
+          "expert_parallel_grad_s": ep_grad_s, "train_step_loss": step_loss,
+          "fsdp_gather_backward_checked": MESH_BACKEND,
+          "peak_gb": moe_peak / 1e9, "launches": moe_launches,
+          "wall_s": time.perf_counter() - t_phase})
+    del moe_params, moe_batch, g_grads, d_params, d_batch, st, d_state, new_p, new_state, m
+    torch.cuda.empty_cache()
+
+    # -- 24. mesh_serve: deepseek-v3's serve loop under the LM mesh -----------
+    # deepseek_serve's cut, params and prompts (seed 0), served with
+    # serve(mesh=): weight-stationary params_shardings(inference=True),
+    # inference_ep (whole experts per rank), the caches by cache_shardings
+    t_phase = time.perf_counter()
+    cfg = deepseek_ref["cfg"]
+    args = tserve.parse_args(["--arch", DEEPSEEK])
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, prompts = tserve.setup(args, dev, cfg=cfg)
+    dispatched.clear()
+    ie = tmoe._dispatch_inference_ep
+    tmoe._dispatch_inference_ep = count("inference_ep", ie)
+    try:
+        res = tserve.serve(cfg, params, prompts, args.gen_tokens, args.max_len, dev, mesh=mesh)
+        serve_dispatch = dict(dispatched)
+        ie_cfg = dataclasses.replace(cfg, inference_ep=True)
+        d_params = tsh.distribute(params, tsh.params_shardings(params, mesh, inference=True))
+        cache = ttf.init_cache(cfg, args.requests, args.max_len, dtype=torch.float32, device=dev)
+        cache = tsh.distribute(cache, tsh.cache_shardings(cache, mesh))
+        step = tsteps.make_serve_step(ie_cfg)
+        prompt_toks = torch.as_tensor(prompts, device=dev)
+        with tsh.use_mesh(mesh):
+            step(d_params, cache, prompt_toks[:, :1], 0)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+            ]) as prof:
+                t = time.perf_counter()
+                for i in range(1, 1 + PROFILED_DECODE_STEPS):
+                    step(d_params, cache, prompt_toks[:, :1], i)
+                torch.cuda.synchronize()
+                profiled_ms = 1e3 * (time.perf_counter() - t) / PROFILED_DECODE_STEPS
+    finally:
+        tmoe._dispatch_inference_ep = ie
+    busy_ms = sum(device_us(prof).values()) / 1e3 / PROFILED_DECODE_STEPS
+    serve_peak = torch.cuda.max_memory_allocated()
+    mesh_serve_launches = dict(ops.LAUNCHES)
+    read_into("mesh_serve")
+    same = np.array_equal(res.tokens, deepseek_ref["tokens"])
+    differ = np.argwhere(res.tokens != deepseek_ref["tokens"]).tolist()
+    check(serve_dispatch.get("inference_ep", 0) > 0, f"mesh_serve dispatched {serve_dispatch}")
+    check(not any(mesh_serve_launches.values()),
+          f"deepseek-v3's serving path launched {mesh_serve_launches}: its MLA and MoE have no "
+          "kernel")
+    check(same, f"mesh_serve's tokens part from deepseek_serve's at (request, step) {differ[:8]}")
+    step_ms = 1e3 * res.decode_s / args.gen_tokens
+    emit({"phase": "mesh_serve", "arch": cfg.name, "reduced": deepseek_note,
+          "mesh": tsh.axis_sizes(mesh), "dispatch": serve_dispatch,
+          "tokens_equal_deepseek_serve": same, "sample": res.tokens[0][:16].tolist(),
+          "decode_step_ms": step_ms, "deepseek_serve_decode_step_ms": deepseek_ref["step_ms"],
+          "profiled_decode_step_ms": profiled_ms, "decode_step_device_busy_ms": busy_ms,
+          "decode_device_busy_share": busy_ms / profiled_ms,
+          "deepseek_serve_device_busy_ms": deepseek_ref["busy_ms"],
+          "decode_top_device_us": sorted(device_us(prof).items(), key=lambda kv: -kv[1])[:8],
+          "peak_gb": serve_peak / 1e9, "deepseek_serve_peak_gb": deepseek_ref["peak_gb"],
+          "launches": mesh_serve_launches, "wall_s": time.perf_counter() - t_phase})
+    del params, d_params, cache, res, prof, prompt_toks
+    torch.cuda.empty_cache()
+
+    # -- 25. abstract: shape-only init of every architecture at full size -----
+    t_phase = time.perf_counter()
+    # no allocation at all: the allocator's count of allocations, beside
+    # memory_allocated() and its peak
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    allocs_before = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    counts, cells = {}, 0
+    for name in ARCH_NAMES:
+        acfg = get_arch(name)
+        leaves = tree_leaves(ttf.init_abstract(acfg))
+        check(all(t.device.type == "meta" for t in leaves), f"{name}: a leaf is not on meta")
+        counts[name] = {"params": acfg.param_count(), "active_params": acfg.active_param_count(),
+                        "leaves": len(leaves), "dtype": str(leaves[0].dtype)}
+        for shape, info in SHAPES.items():
+            specs, _ = input_specs(acfg, shape)
+            check(all(t.device.type == "meta" for t in specs.values()), f"{name} {shape}")
+            if info["kind"] == "decode":
+                cache_leaves = tree_leaves(decode_cache_specs(acfg, shape))
+                check(all(t.device.type == "meta" for t in cache_leaves), f"{name} {shape} cache")
+                counts[name][f"{shape}_cache_bytes"] = sum(
+                    t.numel() * t.element_size() for t in cache_leaves)
+            cells += 1
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - allocs_before
+    check(allocs == 0 and after == before == peak,
+          f"the shape-only init allocated on the card: {allocs} allocations, {before} bytes "
+          f"before, {after} after, {peak} at most")
+    emit({"phase": "abstract", "archs": len(counts), "shape_cells": cells,
+          "allocations": allocs, "memory_allocated_before": before,
+          "memory_allocated_after": after, "max_memory_allocated": peak, "counts": counts,
+          "wall_s": time.perf_counter() - t_phase})
+    dist.destroy_process_group()
+
+    # -- 26. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card

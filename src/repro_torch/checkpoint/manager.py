@@ -13,6 +13,12 @@ manifest's dtypes (numpy has no bf16 without ``ml_dtypes``).  Writes are
 atomic: the step is written into a tmp dir, its files fsynced, and renamed;
 ``latest_step`` reads only complete manifests, so a crash mid-write never
 hides the last good step.
+
+A DTensor leaf is gathered whole before it is saved (every rank of its mesh
+takes part); in a world of several ranks rank 0 writes and the others wait
+for it.  ``load_checkpoint(..., shardings=)`` lays each restored leaf out
+on the given mesh, which may differ from the one it was saved from (the
+restore after an elastic resize).
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..launch import sharding as sh
 from ..tree import tree_leaves, tree_unflatten
 
 _BF16 = "bfloat16"
@@ -49,7 +57,7 @@ def _treedef(tree) -> str:
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = sh.full(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), _BF16
         a = t.numpy()
@@ -66,13 +74,29 @@ def _fsync(path: pathlib.Path) -> None:
         os.close(fd)
 
 
+def _several_ranks() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
 def save_checkpoint(path, step: int, tree, *, extra: Optional[dict] = None) -> str:
     path = pathlib.Path(path)
-    path.mkdir(parents=True, exist_ok=True)
     final = path / f"step_{step:08d}"
+    pairs = [_to_numpy(x) for x in tree_leaves(tree)]
+    if _several_ranks() and dist.get_rank() != 0:
+        dist.barrier()          # rank 0 writes
+        return str(final)
+    try:
+        _write(path, final, step, tree, pairs, extra)
+    finally:
+        if _several_ranks():
+            dist.barrier()
+    return str(final)
+
+
+def _write(path: pathlib.Path, final: pathlib.Path, step: int, tree, pairs, extra) -> None:
+    path.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=path, prefix=".tmp_"))
     try:
-        pairs = [_to_numpy(x) for x in tree_leaves(tree)]
         leaves, dtypes = [a for a, _ in pairs], [dt for _, dt in pairs]
         np.savez(tmp / "shard_0.npz", **{f"leaf_{i}": a for i, a in enumerate(leaves)})
         manifest = {
@@ -94,7 +118,6 @@ def save_checkpoint(path, step: int, tree, *, extra: Optional[dict] = None) -> s
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return str(final)
 
 
 def latest_step(path) -> Optional[int]:
@@ -114,9 +137,11 @@ def latest_step(path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(path, step: int, like_tree):
+def load_checkpoint(path, step: int, like_tree, *, shardings=None):
     """``(tree, extra)``: the step's leaves in the structure of ``like_tree``,
-    each a tensor on the device of the leaf it replaces."""
+    each a tensor on the device of the leaf it replaces; with ``shardings``
+    (a tree of ``launch.sharding.NamedSharding``, the current mesh's) each a
+    DTensor laid out by its sharding."""
     d = pathlib.Path(path) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     like = tree_leaves(like_tree)
@@ -131,7 +156,10 @@ def load_checkpoint(path, step: int, like_tree):
             else:
                 t = torch.from_numpy(a.copy())
             leaves.append(t.to(ref.device) if isinstance(ref, torch.Tensor) else t)
-    return tree_unflatten(like_tree, leaves), manifest["extra"]
+    tree = tree_unflatten(like_tree, leaves)
+    if shardings is not None:
+        tree = sh.distribute(tree, shardings)
+    return tree, manifest["extra"]
 
 
 @dataclasses.dataclass
@@ -149,14 +177,16 @@ class CheckpointManager:
         self._gc()
         return out
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, *, shardings=None):
         step = latest_step(self.directory)
         if step is None:
             return None, None, None
-        tree, extra = load_checkpoint(self.directory, step, like_tree)
+        tree, extra = load_checkpoint(self.directory, step, like_tree, shardings=shardings)
         return step, tree, extra
 
     def _gc(self) -> None:
+        if _several_ranks() and dist.get_rank() != 0:
+            return
         p = pathlib.Path(self.directory)
         steps = sorted(d for d in p.iterdir() if d.name.startswith("step_"))
         for d in steps[: -self.keep]:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .base import SHAPES, ArchConfig, LayerSpec
+from .base import SHAPES, ArchConfig, LayerSpec, decode_cache_specs, input_specs
 from .codeqwen15_7b import CONFIG as CODEQWEN15_7B
 from .deepseek_moe_16b import CONFIG as DEEPSEEK_MOE_16B
 from .deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
@@ -88,4 +88,6 @@ __all__ = [
     "SHAPES",
     "get_arch",
     "reduced",
+    "input_specs",
+    "decode_cache_specs",
 ]

@@ -4,8 +4,10 @@ The port's copy of ``repro.configs.base``: every architecture is one
 :class:`ArchConfig`; heterogeneous stacks (Jamba groups, DeepSeek dense
 prefix) are ``stacks``, a tuple of ``(repeat, (LayerSpec, ...))`` groups
 whose parameters carry a leading ``repeat`` axis.  ``activation_dtype`` is
-a ``torch.dtype``.  The dry-run helpers (``input_specs``,
-``decode_cache_specs``, ``param_count``) wait for the dry-run slice.
+a ``torch.dtype``.  ``param_count`` and ``active_param_count`` count the
+shape-only init; ``input_specs`` and ``decode_cache_specs`` give a shape
+cell's inputs and decode caches as ``meta`` tensors (the reference's
+``ShapeDtypeStruct``s).
 """
 
 from __future__ import annotations
@@ -94,6 +96,25 @@ class ArchConfig:
     def activation_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND roofline maths)."""
+        from ..models.transformer import init_abstract
+        from ..tree import tree_leaves
+
+        return sum(t.numel() for t in tree_leaves(init_abstract(self)))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: shared + top_k experts only)."""
+        total = self.param_count()
+        if self.moe_experts == 0:
+            return total
+        expert_p = 3 * self.d_model * self.moe_d_ff
+        n_moe_layers = sum(
+            r * sum(1 for s in specs if s.ffn == "moe") for r, specs in self.stacks
+        )
+        inactive = n_moe_layers * (self.moe_experts - self.moe_top_k) * expert_p
+        return total - inactive
+
 
 # ======================================================================
 # shape cells (4 shapes per LM arch)
@@ -104,3 +125,50 @@ SHAPES = {
     "decode_32k": dict(kind="decode", seq_len=32_768, global_batch=128),
     "long_500k": dict(kind="decode", seq_len=524_288, global_batch=1),
 }
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _cell(shape: str, reduced: bool):
+    info = SHAPES[shape]
+    s, b = info["seq_len"], info["global_batch"]
+    if reduced:
+        s, b = min(s, 256), min(b, 4)
+    return info, s, b
+
+
+def input_specs(cfg: ArchConfig, shape: str, *, reduced: bool = False):
+    """``(specs, info)``: ``meta`` stand-ins for every model input of a shape
+    cell, and the cell's row of :data:`SHAPES`.
+
+    ``train``/``prefill``: token batch (+ stub frontend embeddings).
+    ``decode``: one new token against a KV/state cache of seq_len.
+    """
+    info, s, b = _cell(shape, reduced)
+    i32 = torch.int32
+    specs: dict = {}
+    if info["kind"] in ("train", "prefill"):
+        n_front = cfg.frontend_tokens if cfg.frontend else 0
+        s_tok = s - n_front
+        if s_tok < 0:   # the reference returns a negative token length here
+            raise ValueError(f"{cfg.name}'s {n_front} frontend tokens exceed the {s}-token "
+                             f"cell {shape}{' (reduced)' if reduced else ''}")
+        specs["tokens"] = _meta((b, s_tok), i32)
+        if info["kind"] == "train":
+            specs["labels"] = _meta((b, s_tok), i32)
+        if cfg.frontend:
+            specs["frontend_embeds"] = _meta((b, n_front, cfg.d_model), cfg.activation_dtype)
+    else:  # decode
+        specs["tokens"] = _meta((b, 1), i32)
+        specs["cache_len"] = _meta((), i32)
+    return specs, info
+
+
+def decode_cache_specs(cfg: ArchConfig, shape: str, *, reduced: bool = False):
+    """The decode cache of a shape cell as ``meta`` tensors."""
+    from ..models.transformer import init_cache_abstract
+
+    _, s, b = _cell(shape, reduced)
+    return init_cache_abstract(cfg, b, s)

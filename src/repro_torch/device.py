@@ -2,7 +2,8 @@
 
 ``device=None`` means ``torch.device("cuda")``: the port runs on the card
 unless the caller asks for the CPU, and it never carries on silently on
-the host when there is no CUDA device.
+the host when there is no CUDA device.  ``"meta"`` makes tensors of shapes
+and dtypes only (``init_cache_abstract``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def resolve(device=None) -> torch.device:
                 "available; pass device='cpu' to run the plain PyTorch "
                 "versions on the host"
             )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or 'meta' (shapes only)")
     return dev
 

@@ -5,6 +5,8 @@ A CUDA tensor goes to the hand-written kernel in ``csrc/`` or the call
 raises: there is no size threshold below which the plain version takes
 over, and no fallback when the library cannot be built or a launch fails.
 Each wrapper adds one to :data:`LAUNCHES` where it launches its kernel.
+A DTensor raises: the models run each rank's shard through
+``launch.sharding.local_call``, so a kernel sees its local tensors.
 
 Attention and the Mamba scan are also differentiable.  On inputs that
 require a gradient they go through :class:`FlashAttentionFn` and
@@ -19,6 +21,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import _build, ref
 from .ref import RelaxCSR, SynapseCSR
@@ -63,6 +66,11 @@ def reset_launches() -> None:
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
+    if any(isinstance(t, DTensor) for t in ts):
+        # a DTensor has no storage a kernel could read, and its plain
+        # version would run on DTensor ops: neither is this wrapper's route
+        raise TypeError("the kernel wrappers take plain tensors; run a DTensor's shards "
+                        "through launch.sharding.local_call")
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devs))}")

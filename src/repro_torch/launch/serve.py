@@ -1,6 +1,11 @@
 """Batched serving: prefill by teacher-forced decode steps, then
 greedy decode (the port of ``repro.launch.serve``).
 
+``serve(..., mesh=)`` serves on an LM mesh as the reference's decode cells
+lay it out: weight-stationary params (``params_shardings(inference=True)``),
+expert-parallel MoE with whole experts per rank (``inference_ep``), the
+caches by ``cache_shardings``, every step under ``use_mesh``.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \\
       --requests 8 --gen-tokens 32 --device cpu
 
@@ -16,11 +21,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import device as device_mod
 from ..configs import get_arch, reduced
 from ..configs.base import ArchConfig
 from ..models import transformer as tf
+from ..tree import tree_leaves
+from . import sharding as sh
 from .steps import make_serve_step
 
 
@@ -42,35 +50,44 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg: ArchConfig, params, prompts: np.ndarray, gen_tokens: int, max_len: int,
-          device=None, *, keep_prompt_logits: bool = False) -> ServeResult:
+          device=None, *, keep_prompt_logits: bool = False, mesh=None) -> ServeResult:
     """Serve ``prompts`` (B, P) token ids: P teacher-forced decode steps
     fill a float32 cache of ``max_len`` slots, then ``gen_tokens`` greedy
-    steps generate.  ``keep_prompt_logits`` keeps the prompt steps' logits."""
+    steps generate.  ``keep_prompt_logits`` keeps the prompt steps' logits.
+    ``mesh`` serves on an LM mesh (the module docstring); plain params are
+    distributed first (every rank holds the same full leaves)."""
     dev = device_mod.resolve(device)
-    step = make_serve_step(cfg)
     b, p_len = prompts.shape
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
     cache = tf.init_cache(cfg, b, max_len, dtype=torch.float32, device=dev)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, inference_ep=True)
+        if not isinstance(tree_leaves(params)[0], DTensor):
+            params = sh.distribute(params, sh.params_shardings(params, mesh, inference=True))
+        cache = sh.distribute(cache, sh.cache_shardings(cache, mesh))
+    step = make_serve_step(cfg)
     kept = []
-    t0 = time.perf_counter()
-    for i in range(p_len):
-        logits, cache = step(params, cache, toks[:, i:i + 1], i)
-        if keep_prompt_logits:
-            kept.append(logits[:, 0])
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    with sh.use_mesh(mesh):
+        t0 = time.perf_counter()
+        for i in range(p_len):
+            logits, cache = step(params, cache, toks[:, i:i + 1], i)
+            if keep_prompt_logits:
+                kept.append(sh.full(logits[:, 0]))
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
 
-    out = []
-    tok = logits[:, -1:].argmax(dim=-1)
-    t1 = time.perf_counter()
-    for j in range(gen_tokens):
-        out.append(tok)
-        logits, cache = step(params, cache, tok, p_len + j)
-        tok = logits[:, -1:].argmax(dim=-1)
-    gen = torch.cat(out, dim=1).cpu().numpy()
-    _sync(dev)
+        out = []
+        tok = sh.full(logits[:, -1:]).argmax(dim=-1)
+        t1 = time.perf_counter()
+        for j in range(gen_tokens):
+            out.append(tok)
+            logits, cache = step(params, cache, tok, p_len + j)
+            tok = sh.full(logits[:, -1:]).argmax(dim=-1)
+        gen = torch.cat(out, dim=1).cpu().numpy()
+        _sync(dev)
+        decode_s = time.perf_counter() - t1
     return ServeResult(
-        tokens=gen, prefill_s=t_prefill, decode_s=time.perf_counter() - t1,
+        tokens=gen, prefill_s=t_prefill, decode_s=decode_s,
         prompt_logits=torch.stack(kept, dim=1) if keep_prompt_logits else None,
     )
 

@@ -1,22 +1,58 @@
-"""The analysis mesh: the devices the sharded λ-search spreads its rows over.
+"""Sharding: the analysis mesh of the λ-search, and the LM mesh's rules
+(the port of ``repro.launch.sharding``).
 
-The port's copy of the part of ``repro.launch.sharding`` that the SNN
-compiler's scoring uses: a one-dimensional :class:`Mesh` of
-``torch.device``s, :func:`host_mesh` over the visible CUDA devices,
-:func:`row_chunks` (the batch-axis sharding rule) and a thread-local
-ambient mesh (:func:`use_mesh` / :func:`current_mesh`).  The sharding
-rules of the LM substrate (``logical_shard`` and the parameter and cache
-specs) wait for the distributed slice.
+**The analysis mesh.** A one-dimensional :class:`Mesh` of ``torch.device``s,
+:func:`host_mesh` over the visible CUDA devices and :func:`row_chunks` (the
+batch-axis sharding rule): the sharded λ-search spreads its rows over it.
+
+**The LM mesh** is a ``torch.distributed`` ``DeviceMesh`` named
+``("data", "model")`` or ``("pod", "data", "model")`` (``launch/mesh.py``).
+One place maps every parameter, activation, cache and optimizer leaf to a
+spec over it, with the reference's rules:
+
+  batch dims            -> ("pod","data")      (DP; ZeRO-style state shard)
+  attention heads / FFN hidden / experts / vocab -> "model"  (TP / EP)
+  KV-cache: heads over "model" when divisible, else sequence (SP)
+
+Every rule degrades gracefully: an axis is applied only if the dim is
+divisible by the mesh axis size.
+
+The spec functions are pure over the mesh's axis names and sizes: ``mesh``
+is a ``DeviceMesh`` or a mapping of axis name to size, so the production
+specs need no process group.  A spec is the reference's ``PartitionSpec``
+as a tuple, one entry a dim: ``None``, an axis name, or a tuple of axis
+names.  :func:`placements` turns a spec into DTensor placements on a real
+``DeviceMesh``, and :func:`distribute` applies a tree of
+:class:`NamedSharding`.
+
+**The order of a multi-axis entry.**  A dim sharded over several axes,
+such as the inference experts' ``("model", "data")``, is split by DTensor
+in the mesh's order: on a ``(data, model)`` mesh chunk
+``data_idx * n_model + model_idx``, where JAX splits in the entry's order
+(``model_idx * n_data + data_idx``).  The port keeps DTensor's layout and
+linearises the expert rank in ``models/moe.py``'s ``_local_moe`` over the
+expert axes in mesh order to match it.  So the results are the
+reference's, but expert ``e`` of an inference-EP layer lies on another
+``(data, model)`` coordinate than in the reference whenever both axes are
+larger than one.
+
+**The ambient mesh.**  :func:`use_mesh` / :func:`current_mesh` carry either
+kind.  The λ-search reads it through :func:`mesh_devices`, which ignores an
+LM ``DeviceMesh``: the λ-search shards over an analysis :class:`Mesh` only.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import re
 import threading
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
+
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 _STATE = threading.local()
 
@@ -44,30 +80,55 @@ class Mesh:
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
 
 
-def current_mesh() -> Optional[Mesh]:
-    """The mesh entered by :func:`use_mesh` on this thread, else ``None``."""
+def current_mesh():
+    """The mesh entered by :func:`use_mesh` on this thread (an analysis
+    :class:`Mesh` or an LM ``DeviceMesh``), else ``None``."""
     return getattr(_STATE, "mesh", None)
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Mesh):
-    """Make ``mesh`` this thread's ambient mesh (other threads do not see it)."""
+def use_mesh(mesh):
+    """Make ``mesh`` this thread's ambient mesh (other threads do not see
+    it).  Under an LM ``DeviceMesh`` a plain tensor that meets a DTensor
+    (positions, masks, RoPE tables, in the forward and in autograd's
+    backward) counts as replicated over the mesh."""
     prev = getattr(_STATE, "mesh", None)
     _STATE.mesh = mesh
     try:
-        yield mesh
+        if mesh is None or isinstance(mesh, Mesh):
+            yield mesh
+        else:
+            with _implicit_replication():
+                yield mesh
     finally:
         _STATE.mesh = prev
 
 
-def mesh_devices(mesh: Optional[Mesh]) -> list:
-    """Flat device list of ``mesh`` (row-major over its axes); ``[]`` if None.
+@contextlib.contextmanager
+def _implicit_replication():
+    """DTensor's ``implicit_replication``, restoring the flag it found on
+    exit: torch's own clears it, which would end an enclosing one (the
+    layer groups enter the mesh again inside the step's)."""
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    prev = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = prev
+
+
+def mesh_devices(mesh) -> list:
+    """Flat device list of an analysis ``mesh``; ``[]`` for None or an LM
+    ``DeviceMesh`` (the λ-search does not shard over the LM mesh).
 
     The sharded analysis path (:func:`repro_torch.core.engine.batch_execute`
     / ``batch_execute_fused``) chunks the EdgeStack batch axis over exactly
     this ordering, so chunk k always lands on the same device across calls.
     """
-    return [] if mesh is None else list(mesh.devices)
+    return list(mesh.devices) if isinstance(mesh, Mesh) else []
 
 
 def host_mesh(n_devices: Optional[int] = None) -> Mesh:
@@ -106,3 +167,373 @@ def row_chunks(n_rows: int, n_parts: int) -> list[slice]:
             out.append(slice(start, start + size))
         start += size
     return out
+
+
+# ======================================================================
+# the LM mesh: axis sizes, specs and placements
+# ======================================================================
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh``, an analysis :class:`Mesh`
+    or a mapping of axis name to size, in the mesh's axis order."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    if isinstance(mesh, Mesh):
+        return {mesh.axis_names[0]: len(mesh.devices)}
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("an LM DeviceMesh needs mesh_dim_names")
+    return dict(zip(names, (int(n) for n in mesh.shape)))
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    if isinstance(axis, tuple):
+        return math.prod(sizes[a] for a in axis)
+    return sizes[axis]
+
+
+def _entry(axis):
+    """A spec entry as ``PartitionSpec`` keeps it: a one-axis tuple is its axis."""
+    return axis[0] if isinstance(axis, tuple) and len(axis) == 1 else axis
+
+
+def _fit(mesh, shape, spec_axes) -> tuple:
+    """Drop spec axes that do not divide the corresponding dim."""
+    fitted = []
+    for dim, axis in zip(shape, spec_axes):
+        if axis is not None and dim % _axis_size(mesh, axis) == 0 and dim > 0:
+            fitted.append(_entry(axis))
+        else:
+            fitted.append(None)
+    return tuple(fitted)
+
+
+def batch_axes(mesh) -> tuple:
+    return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec over a mesh: the port's ``jax.sharding.NamedSharding``.
+    ``mesh`` is a ``DeviceMesh``, or an axis-size mapping when only the spec
+    is wanted."""
+
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)
+
+
+def is_sharding(x) -> bool:
+    return isinstance(x, NamedSharding)
+
+
+def placements(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``: one a
+    mesh axis, ``Shard(d)`` for the dim ``d`` whose entry names the axis,
+    else ``Replicate()``.  A dim named by several axes is split in the
+    mesh's order (the module docstring).  An axis of size 1 replicates: one
+    shard is the whole dim, and DTensor would refuse views of a dim it
+    counts as sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    out = [Replicate() for _ in names]
+    used = set()
+    for d, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is None:
+                continue
+            if axis in used:
+                raise ValueError(f"mesh axis {axis!r} shards two dims of spec {spec}")
+            used.add(axis)
+            if sizes[axis] > 1:
+                out[names.index(axis)] = Shard(d)
+    return tuple(out)
+
+
+def distribute(tree, shardings):
+    """Each tensor leaf of ``tree`` as a DTensor with its sharding's
+    placements.  Every rank must hold the same full leaf (a seeded init, a
+    restored checkpoint): each keeps its own chunk and nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(
+        lambda t, sh: distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None),
+        tree, shardings, is_leaf=is_sharding)
+
+
+def full(t):
+    """A DTensor gathered whole on every rank (a collective: every rank of
+    its mesh calls it); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def write_slot(buf, dim: int, slot: int, val) -> None:
+    """``buf.select(dim, slot).copy_(val)``, in place, also on a DTensor
+    ``buf`` (a decode cache): ``val`` is laid out as ``buf`` without ``dim``
+    and written into the shard that holds ``slot``, if this rank has it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(buf, DTensor):
+        buf.select(dim, slot).copy_(val)
+        return
+    mesh, pls = buf.device_mesh, buf.placements
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    val_pls = [Replicate() if isinstance(p, Shard) and p.dim == dim
+               else Shard(p.dim - (p.dim > dim)) if isinstance(p, Shard) else p for p in pls]
+    local_val = val.redistribute(mesh, val_pls).to_local()
+    lo, size = _local_range(mesh, pls, dim, buf.shape[dim])
+    if lo <= slot < lo + size:
+        buf.to_local().select(dim, slot - lo).copy_(local_val)
+
+
+def _local_range(mesh, pls, dim: int, size: int) -> tuple:
+    """(first index, count) of dim ``dim`` (of global ``size``) that this
+    rank holds under placements ``pls``: DTensor's row-major chunks, even
+    by ``_fit``."""
+    from torch.distributed.tensor import Shard
+
+    lo = 0
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * size
+    return lo, size
+
+
+def embedding(tokens, table):
+    """``F.embedding(tokens, table)``.  On a DTensor ``table`` (V, D) the
+    lookup is vocab-parallel and the table stays where it is: the tokens
+    (small) are replicated, each rank looks its own rows up in its own
+    columns (zero for a token whose row another rank holds), and the
+    partial sums over the vocab's axes are reduced as the result is laid
+    out like the tokens, with D whole.  (DTensor's own vocab-parallel
+    embedding mixes up its mask when the tokens are batch-sharded.)"""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh, pls = table.device_mesh, tuple(table.placements)
+    nd = tokens.dim()
+
+    def lookup(tok, tab):
+        lo, n = _local_range(mesh, pls, 0, table.shape[0])
+        rel = tok - lo
+        inside = (rel >= 0) & (rel < n)
+        return F.embedding(torch.where(inside, rel, 0), tab) * inside[..., None].to(tab.dtype)
+
+    out_pls = tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else
+                    Shard(nd) if isinstance(p, Shard) else Replicate() for p in pls)
+    tok_pls = (tuple(tokens.placements) if isinstance(tokens, DTensor)
+               else (Replicate(),) * mesh.ndim)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, tok_pls, run_check=False)
+    rep = (Replicate(),) * mesh.ndim
+    x = local_map(lookup, out_placements=(out_pls,), in_placements=(rep, pls),
+                  in_grad_placements=(rep, pls), device_mesh=mesh,
+                  redistribute_inputs=True)(tokens, table)
+    return x.redistribute(mesh, tok_pls)
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)``, with a DTensor ``src`` laid out as ``dst`` first."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst, DTensor) and isinstance(src, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
+# ======================================================================
+# activations
+# ======================================================================
+def logical_shard(x, kind: str):
+    """Constrain an activation inside model code: the identity without an
+    ambient LM mesh or on a plain tensor; a DTensor is redistributed to the
+    kind's fitted placements."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = current_mesh()
+    if mesh is None or isinstance(mesh, Mesh) or not isinstance(x, DTensor):
+        return x
+    b = batch_axes(mesh)
+    if kind == "act":  # (B, S, D)
+        spec = _fit(mesh, x.shape, (b, None, None))
+    elif kind == "logits":  # (B, S, V)
+        spec = _fit(mesh, x.shape, (b, None, "model"))
+    elif kind == "rows":  # (B, ...) row-batched analysis arrays
+        spec = _fit(mesh, x.shape, (b,) + (None,) * (x.ndim - 1))
+    else:
+        return x
+    return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
+
+
+# ======================================================================
+# parameters
+# ======================================================================
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    # (path regex, spec template aligned from the RIGHT; left dims pad None).
+    # Two-axis sharding: "model" = tensor/expert parallel, "data" = FSDP /
+    # ZeRO-3.
+    (r"experts/w_(gate|up)$", ("model", "data", None)),  # (L,E,D,F)
+    (r"experts/w_down$", ("model", None, "data")),       # (L,E,F,D)
+    (r"router$", (None, None)),                          # replicated (tiny)
+    (r"(wq|wk|wv|w_gate|w_up|w_qkv|w_in|w_dt|wq_b|wk_b|wv_b|w_if|wq_a|wkv_a)$",
+     ("data", "model")),                                 # (..., D, F)
+    (r"(wo|w_down|w_out)$", ("model", "data")),          # (..., F, D)
+    (r"r_gates$", ("data", "model")),
+    (r"a_log$", ("model", None)),                        # (L, di, n)
+    (r"d_skip$", ("model",)),
+    (r"w_conv$", (None, "model")),
+    (r"(b_up|bq|bk|bv)$", ("model",)),
+    (r"(b_down|b_if|norm.*|d_skip)$", (None,)),
+    (r"^embed$", ("model", "data")),                     # (V, D)
+    (r"^lm_head$", ("data", "model")),                   # (D, V)
+    (r"^frontend_proj$", ("data", "model")),
+    (r"^final_norm$", (None,)),
+]
+
+
+def param_pspec(path: str, shape, mesh, *, inference: bool = False) -> tuple:
+    for pattern, tail in _PARAM_RULES:
+        if re.search(pattern, path):
+            if inference:
+                # weight-stationary serving: no FSDP axis (no per-step
+                # gathers); experts spread over (model x data) whole-expert
+                if "experts" in path:
+                    tail = (("model", "data"), None, None)
+                else:
+                    tail = tuple(None if a == "data" else a for a in tail)
+            full = (None,) * max(0, len(shape) - len(tail)) + tuple(
+                tail[-len(shape):] if len(tail) > len(shape) else tail
+            )
+            return _fit(mesh, shape, full)
+    return _fit(mesh, shape, (None,) * len(shape))
+
+
+def _paths(tree, prefix=""):
+    """The ``/``-joined key path of every leaf, in leaf order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def params_shardings(params, mesh, *, inference: bool = False):
+    """A :class:`NamedSharding` for each leaf of a (meta or real) param tree."""
+    return tree_unflatten(params, [
+        NamedSharding(mesh, param_pspec(path, leaf.shape, mesh, inference=inference))
+        for path, leaf in zip(_paths(params), tree_leaves(params))])
+
+
+# ======================================================================
+# decode caches / states / optimizer
+# ======================================================================
+def cache_pspec(shape, mesh) -> tuple:
+    """Shard a decode-cache leaf.
+
+    Cache leaves are stacked per layer: (L, B, ...rest).  Rule: L
+    replicated; B -> data when divisible; the first remaining dim divisible
+    by the model axis -> model (heads for GQA, sequence for MLA, di for SSM
+    states)."""
+    b = batch_axes(mesh)
+    spec: list = [None] * len(shape)
+    if len(shape) >= 2 and shape[1] % _axis_size(mesh, b) == 0:
+        spec[1] = _entry(b)
+    for dim in range(2, len(shape)):
+        if shape[dim] % _axis_size(mesh, "model") == 0:
+            spec[dim] = "model"
+            break
+    return tuple(spec)
+
+
+def cache_shardings(cache, mesh):
+    return tree_map(lambda leaf: NamedSharding(mesh, cache_pspec(leaf.shape, mesh)), cache)
+
+
+def batch_shardings(batch, mesh):
+    b = batch_axes(mesh)
+    return tree_map(lambda leaf: NamedSharding(
+        mesh, _fit(mesh, leaf.shape, (b,) + (None,) * (len(leaf.shape) - 1))), batch)
+
+
+def _is_int8_moment(x) -> bool:
+    return isinstance(x, dict) and "q" in x and "scale" in x
+
+
+def opt_state_shardings(opt_state, params, mesh):
+    """Shardings for the AdamW state tree.
+
+    float32/bf16 moments mirror their parameter's sharding; an int8
+    moment's ``q`` (the parameter's dims, the last padded to the block) and
+    ``scale`` (the last dim swapped for the block count) take the
+    parameter's spec, the scale's last dim unsharded."""
+    param_sh = params_shardings(params, mesh)
+
+    def mom(m_leaf, p_sh):
+        if _is_int8_moment(m_leaf):
+            q_shape = m_leaf["q"].shape
+            base = tuple(p_sh.spec) + (None,) * (len(q_shape) - len(p_sh.spec))
+            return {
+                "q": NamedSharding(mesh, _fit(mesh, q_shape, base)),
+                "scale": NamedSharding(mesh, _fit(mesh, m_leaf["scale"].shape,
+                                                  base[:-1] + (None,))),
+            }
+        return p_sh
+
+    out = {
+        "step": NamedSharding(mesh, ()),
+        "m": tree_map(mom, opt_state["m"], param_sh, is_leaf=_is_int8_moment),
+        "v": tree_map(mom, opt_state["v"], param_sh, is_leaf=_is_int8_moment),
+    }
+    if "ef" in opt_state:  # error-feedback residuals follow params
+        out["ef"] = param_sh
+    return out
+
+
+# ======================================================================
+# per-shard calls (the port's shard_map)
+# ======================================================================
+def lm_mesh(mesh=None):
+    """``mesh``, else the ambient mesh if it is an LM ``DeviceMesh``, else None."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return None if mesh is None or isinstance(mesh, Mesh) else mesh
+
+
+def local_call(fn, args, in_specs, out_specs, mesh):
+    """``fn`` of each rank's local shards of ``args`` laid out by
+    ``in_specs``, its outputs read as DTensors laid out by ``out_specs``
+    (``local_map``, the port's ``shard_map``).  A plain tensor argument
+    counts as replicated over the mesh.  ``fn`` runs the collectives its
+    outputs need.
+
+    Gradients: an input replicated over a mesh axis that shards another
+    input gets its gradient summed over that axis (each rank computed a
+    part of it), as ``shard_map``'s transpose sums an unmapped input's
+    cotangents."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    in_pls = [placements(mesh, s) for s in in_specs]
+    split = {i for pl in in_pls for i, p in enumerate(pl) if isinstance(p, Shard)}
+    grad_pls = [tuple(Partial() if i in split and isinstance(p, Replicate) else p
+                      for i, p in enumerate(pl)) for pl in in_pls]
+    out_pls = [placements(mesh, s) for s in out_specs]
+    args = [a if isinstance(a, DTensor) else
+            DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for a in args]
+    return local_map(
+        fn, out_placements=tuple(out_pls),
+        in_placements=tuple(in_pls), in_grad_placements=tuple(grad_pls),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(*args)

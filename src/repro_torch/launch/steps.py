@@ -2,9 +2,11 @@
 
 The train step differentiates ``transformer.loss_fn`` with
 ``torch.autograd.grad`` over the parameter leaves in the reference's leaf
-order and applies AdamW; it runs on one device (the sharded trainer is
-ROADMAP.md, queue 1, item 8.5).  The prefill and serve steps run without
-autograd: serving takes no gradient.
+order and applies AdamW.  It runs on one device, or on DTensors under an
+LM mesh (``launch.sharding.use_mesh``): then the new params and optimizer
+state keep the layouts they came in with, as the reference's jitted step
+keeps its ``out_shardings`` equal to its ``in_shardings``.  The prefill and
+serve steps run without autograd: serving takes no gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +29,19 @@ def loss_and_grads(params, batch: dict, cfg: ArchConfig):
         loss = tf.loss_fn(tree_unflatten(params, leaves), batch, cfg)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def _keep_layout(new, old):
+    """Each DTensor leaf of ``new`` laid out as the leaf of ``old`` at its
+    place (the update's elementwise ops may leave another layout)."""
+    from torch.distributed.tensor import DTensor
+
+    def keep(n, o):
+        if isinstance(o, DTensor) and tuple(n.placements) != tuple(o.placements):
+            return n.redistribute(o.device_mesh, o.placements)
+        return n
+
+    return tree_map(keep, new, old)
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum: int = 1,
@@ -62,10 +77,9 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum: int = 1,
                              is_leaf=lambda x: isinstance(x, tuple))
             opt_state = dict(opt_state, ef=ef)
         ef_state = opt_state.get("ef")
-        params, opt_state = adamw_update(
-            params, grads, {k: v for k, v in opt_state.items() if k != "ef"},
-            opt, cosine_schedule(opt_state["step"]),
-        )
+        old = (params, {k: v for k, v in opt_state.items() if k != "ef"})
+        params, opt_state = _keep_layout(adamw_update(
+            params, grads, old[1], opt, cosine_schedule(opt_state["step"])), old)
         if ef_state is not None:
             opt_state = dict(opt_state, ef=ef_state)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))

@@ -26,6 +26,7 @@ import torch
 
 from .. import device as device_mod
 from ..kernels import ops
+from ..launch import sharding as sh
 from .blocks import apply_rope, init_linear, mm
 
 
@@ -111,10 +112,26 @@ def gqa_forward(p, x, cfg, *, positions=None, window=None):
     k = apply_rope(_project(p, x, "k", hkv, dh), positions[:, None, :], theta=cfg.rope_theta)
     v = _project(p, x, "v", hkv, dh)
     w = window if window is not None else cfg.window
-    # the reference's _grouped: the flash kernel on its accelerator, the
-    # masked dense path elsewhere; ops routes by the tensor's device
-    o = ops.flash_attention(q, k, v, causal=True, window=w or 0)
+    o = _flash(q, k, v, w or 0)
     return mm(o.transpose(1, 2).reshape(b, s, hq * dh), p["wo"])
+
+
+def _flash(q, k, v, window: int):
+    """Causal attention through ``ops.flash_attention`` (the reference's
+    _grouped: the flash kernel on its accelerator, the masked dense path
+    elsewhere; ops routes by the tensor's device).  On DTensors each rank
+    runs it on its own shard (``local_call``): the batch over the batch
+    axes, the heads over ``"model"`` where both head counts divide."""
+    def attend(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
+    mesh = getattr(q, "device_mesh", None)
+    if mesh is None:
+        return attend(q, k, v)
+    n_model = sh.axis_sizes(mesh)["model"]
+    heads = "model" if q.shape[1] % n_model == 0 and k.shape[1] % n_model == 0 else None
+    spec = sh._fit(mesh, q.shape, (sh.batch_axes(mesh), heads, None, None))
+    return sh.local_call(attend, (q, k, v), [spec] * 3, [spec], mesh)
 
 
 def gqa_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -147,13 +164,13 @@ def gqa_decode(p, x, cache, length: int, cfg):
     ck, cv = cache["k"], cache["v"]
     cap = ck.shape[2]
     slot = length % cap if cfg.window else min(length, cap - 1)
-    ck[:, :, slot] = k[:, :, 0]
-    cv[:, :, slot] = v[:, :, 0]
+    sh.write_slot(ck, 2, slot, k[:, :, 0])
+    sh.write_slot(cv, 2, slot, v[:, :, 0])
     kv_len = min(length + 1, cap)
     g = hq // hkv
     qg = q[:, :, 0].reshape(b, hkv, g, dh).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, ck.float()) / math.sqrt(dh)
-    s[..., kv_len:] = float("-inf")
+    s = s.masked_fill(torch.arange(cap, device=x.device) >= kv_len, float("-inf"))
     prob = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", prob, cv.float())
     o = o.to(x.dtype).reshape(b, 1, hq * dh)
@@ -235,8 +252,8 @@ def mla_decode(p, x, cache, length: int, cfg):
 
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     slot = min(length, c_kv.shape[1] - 1)
-    c_kv[:, slot] = c_new[:, 0]
-    k_rope[:, slot] = kr_new[:, 0, 0]
+    sh.write_slot(c_kv, 1, slot, c_new[:, 0])
+    sh.write_slot(k_rope, 1, slot, kr_new[:, 0, 0])
 
     # absorbed scores: q_nope . (W_kb c) = (q_nope W_kb^T) . c
     ckv = c_kv.float()
@@ -245,7 +262,8 @@ def mla_decode(p, x, cache, length: int, cfg):
     s_lat = torch.einsum("bhor,bsr->bhos", q_lat, ckv)                  # (B, h, 1, S)
     s_rope = torch.einsum("bhod,bsd->bhos", q_rope.float(), k_rope.float())
     s_all = (s_lat + s_rope) * (1.0 / math.sqrt(dn + dr))
-    s_all[..., length + 1:] = float("-inf")
+    s_all = s_all.masked_fill(torch.arange(c_kv.shape[1], device=x.device) > length,
+                              float("-inf"))
     prob = torch.softmax(s_all, dim=-1)
     ctx_lat = torch.einsum("bhos,bsr->bhor", prob, ckv)
     wv = p["wv_b"].reshape(rkv, h, dv).float()

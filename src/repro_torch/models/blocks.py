@@ -3,7 +3,8 @@
 Parameters are nested dicts of tensors and every block is a function
 ``f(params, x, ...) -> y``.  Weights are ``(d_in, d_out)`` and applied as
 ``x @ W``.  Initializers draw from an explicit ``torch.Generator`` and
-allocate on its device.
+allocate on its device; given :data:`SHAPE_ONLY` they make ``meta``
+tensors.
 
 Mixed types follow the reference's promotion: JAX promotes ``bf16 @ f32``
 to float32, while ``torch.matmul`` refuses mixed operands, so every
@@ -27,8 +28,26 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
+class ShapeOnly:
+    """A stand-in for a ``torch.Generator`` on the ``meta`` device: the
+    initialisers given it make ``meta`` tensors of their parameters' shapes
+    and dtypes, allocate nothing and draw nothing (``init_abstract``)."""
+
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
+def is_shape_only(gen) -> bool:
+    return gen.device.type == "meta"
+
+
 def truncated_normal(gen: torch.Generator, shape, scale, dtype=torch.float32):
-    """``scale`` times a standard normal truncated to [-2, 2], on ``gen``'s device."""
+    """``scale`` times a standard normal truncated to [-2, 2], on ``gen``'s
+    device; a ``meta`` tensor for :data:`SHAPE_ONLY`."""
+    if is_shape_only(gen):
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(float(scale)).to(dtype)
@@ -125,6 +144,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     but one term of the contraction are zeros, so it is the gathered logit.
     """
     logz = torch.logsumexp(logits.float(), dim=-1)
-    onehot = torch.zeros_like(logits).scatter_(-1, labels[..., None].long(), 1.0)
+    onehot = torch.zeros_like(logits).scatter(-1, labels[..., None].long(), 1.0)
     gold = torch.einsum("...v,...v->...", logits, onehot).float()
     return torch.mean(logz - gold)

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from .. import device as device_mod
 from ..kernels import ops
-from .blocks import init_linear, mm
+from ..launch import sharding as sh
+from .blocks import init_linear, is_shape_only, mm
 
 
 def init_mamba(gen, cfg, *, stack=(), dtype=torch.float32):
@@ -26,7 +27,7 @@ def init_mamba(gen, cfg, *, stack=(), dtype=torch.float32):
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=gen.device))
     return {
         "w_in": init_linear(gen, d, 2 * di, stack=stack, dtype=dtype),
-        "w_conv": conv.normal_(0.0, 0.1, generator=gen).to(dtype),
+        "w_conv": (conv if is_shape_only(gen) else conv.normal_(0.0, 0.1, generator=gen)).to(dtype),
         "w_x_dbc": init_linear(gen, di, cfg.mamba_dt_rank + 2 * n, stack=stack, dtype=dtype),
         "w_dt": init_linear(gen, cfg.mamba_dt_rank, di, stack=stack, dtype=dtype),
         "a_log": a_log.expand(*stack, di, n).to(dtype).contiguous(),
@@ -69,11 +70,28 @@ def mamba_forward(p, x, cfg):
     u, gate = mm(x, p["w_in"]).chunk(2, dim=-1)
     u, _ = _causal_conv(p, u)
     dt, a, bmat, cmat = _ssm_params(p, u, cfg)
-    y, _ = ops.mamba_scan(u, dt.contiguous(), a, bmat.contiguous(), cmat.contiguous(),
-                          chunk=cfg.mamba_chunk)
+    y = _scan(u, dt, a, bmat, cmat, cfg.mamba_chunk)
     y = y + u * p["d_skip"]
     y = y * F.silu(gate)
     return mm(y, p["w_out"])
+
+
+def _scan(u, dt, a, bmat, cmat, chunk: int):
+    """The scan's output through ``ops.mamba_scan``.  On DTensors each rank
+    scans its own shard (``local_call``): the batch over the batch axes, the
+    channels over ``"model"`` where they divide."""
+    def scan(u, dt, a, bmat, cmat):
+        return ops.mamba_scan(u, dt.contiguous(), a, bmat.contiguous(), cmat.contiguous(),
+                              chunk=chunk)[0]
+
+    mesh = getattr(u, "device_mesh", None)
+    if mesh is None:
+        return scan(u, dt, a, bmat, cmat)
+    b = sh._fit(mesh, u.shape[:1], (sh.batch_axes(mesh),))[0]
+    ch = sh._fit(mesh, u.shape[2:], ("model",))[0]
+    x_spec = (b, None, ch)
+    specs = [x_spec, x_spec, (ch, None), (b, None, None), (b, None, None)]
+    return sh.local_call(scan, (u, dt, a, bmat, cmat), specs, [x_spec], mesh)
 
 
 def mamba_init_state(cfg, batch, dtype=torch.float32, device=None):
@@ -99,6 +117,6 @@ def mamba_decode(p, x, state, cfg):
     y = (h * cmat[:, 0, None, :].float()).sum(dim=-1)
     y = y.to(x.dtype)[:, None] + u * p["d_skip"]
     y = y * F.silu(gate)
-    state["ssm"].copy_(h)
-    state["conv"].copy_(conv_state)
+    sh.assign(state["ssm"], h)
+    sh.assign(state["conv"], conv_state)
     return mm(y, p["w_out"]), state

@@ -3,8 +3,9 @@
 
   forward       training / prefill over full sequences (logits)
   loss_fn       mean token cross-entropy plus the weighted MoE aux loss
-  init_params   concrete init from a ``torch.Generator``
-  init_cache    decode caches per layer
+  init_params   concrete init from a ``torch.Generator``;
+  init_abstract the same tree as ``meta`` tensors (no allocation)
+  init_cache    decode caches per layer (``init_cache_abstract``: ``meta``)
   decode_step   one-token decode updating the cache in place
 
 Parameters keep the reference's layout: ``stack{si}/l{li}/...`` with a
@@ -19,22 +20,24 @@ the first layer's ``x + h`` promotes the stream to float32.
 Every layer kind of the reference is ported: the ``gqa``, ``mla``,
 ``mamba``, ``mlstm`` and ``slstm`` mixers and the ``swiglu``, ``gelu`` and
 ``moe`` FFNs (or none); an unknown kind raises ``ValueError``, as the
-reference's.  ``logical_shard`` is the identity on one card and is left
-out.
+reference's.  ``logical_shard`` sits at the reference's four sites: the
+identity without an LM mesh, on a DTensor a redistribution to the batch
+axes (and the vocab over ``"model"`` for the logits).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..launch.sharding import embedding, lm_mesh, logical_shard, use_mesh
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
 from . import xlstm as xl
 from .blocks import (
+    SHAPE_ONLY,
     cross_entropy,
     gelu_ffn,
     init_gelu_ffn,
@@ -108,6 +111,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32):
     return params
 
 
+def init_abstract(cfg: ArchConfig):
+    """Shape-only params in ``cfg.activation_dtype`` (the reference's
+    ``eval_shape``): ``meta`` tensors, nothing allocated or drawn."""
+    return init_params(cfg, SHAPE_ONLY, dtype=cfg.activation_dtype)
+
+
 # ======================================================================
 # forward (training / prefill)
 # ======================================================================
@@ -146,7 +155,8 @@ def _apply_layer(p, spec: LayerSpec, x, cfg, positions):
         h = xl.slstm_forward(p["mixer"], h, cfg)
     else:
         raise ValueError(spec.mixer)
-    return _ffn(p, spec, x + h, cfg)
+    x, aux = _ffn(p, spec, x + h, cfg)
+    return logical_shard(x, "act"), aux
 
 
 def _layers(params, cfg):
@@ -182,15 +192,19 @@ def _run_stacks(params, x, cfg, positions):
     ``cfg.remat == "full"`` each group is checkpointed: its activations are
     recomputed in the backward."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
+    mesh = lm_mesh()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (repeat, specs) in enumerate(cfg.stacks):
 
         def group_fn(x, gp, specs=specs):
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            for li, spec in enumerate(specs):
-                x, a = _apply_layer(gp[f"l{li}"], spec, x, cfg, positions)
-                if a is not None:
-                    aux = aux + a
+            # remat's recompute runs on autograd's thread on the card, which
+            # does not see this thread's ambient mesh: enter it again
+            with use_mesh(mesh):
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                for li, spec in enumerate(specs):
+                    x, a = _apply_layer(gp[f"l{li}"], spec, x, cfg, positions)
+                    if a is not None:
+                        aux = aux + a
             return x, aux
 
         for gp in _unbind(params[f"stack{si}"]):
@@ -207,21 +221,23 @@ def _logits(params, x, cfg):
 
 def forward(params, batch: dict, cfg: ArchConfig):
     """batch: tokens (B,S) [+ frontend_embeds (B,N,D)] -> (logits (B,S,V), aux)."""
-    # F.embedding, not indexing: its backward adds each token's row in a
-    # fixed order, where indexing's (index_put_ with accumulate) adds them
-    # with atomics on the CPU, so two runs part and a restart is not exact
-    x = F.embedding(batch["tokens"], params["embed"]).to(cfg.activation_dtype)
+    # F.embedding (sharding.embedding), not indexing: its backward adds each
+    # token's row in a fixed order, where indexing's (index_put_ with
+    # accumulate) adds them with atomics on the CPU, so two runs part and a
+    # restart is not exact
+    x = embedding(batch["tokens"], params["embed"]).to(cfg.activation_dtype)
     n_front = 0
     if cfg.frontend and "frontend_embeds" in batch:
         fe = mm(batch["frontend_embeds"].to(cfg.activation_dtype), params["frontend_proj"])
         dt = torch.promote_types(fe.dtype, x.dtype)
         x = torch.cat([fe.to(dt), x.to(dt)], dim=1)
         n_front = fe.shape[1]
+    x = logical_shard(x, "act")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_stacks(params, x, cfg, positions)
     if n_front:
         x = x[:, n_front:]
-    return _logits(params, x, cfg), aux
+    return logical_shard(_logits(params, x, cfg), "logits"), aux
 
 
 def loss_fn(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -259,6 +275,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
     return cache
 
 
+def init_cache_abstract(cfg: ArchConfig, batch: int, max_len: int):
+    """Shape-only decode caches (the reference's ``eval_shape`` of
+    ``init_cache`` at its default bf16): ``meta`` tensors."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
 def _decode_layer(p, spec: LayerSpec, x, cache, length, cfg):
     h = _norm(p, "norm1", x, cfg)
     if spec.mixer == "gqa":
@@ -281,7 +303,7 @@ def decode_step(params, tokens, cache, length: int, cfg: ArchConfig):
 
     Returns (logits (B, 1, V), cache); the cache is updated in place.
     """
-    x = params["embed"][tokens].to(cfg.activation_dtype)
+    x = logical_shard(embedding(tokens, params["embed"]).to(cfg.activation_dtype), "act")
     for sk, r, lk, spec, lp in _layers(params, cfg):
         x, _ = _decode_layer(lp, spec, x, _index(cache[sk][lk], r), length, cfg)
     return _logits(params, x, cfg), cache

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import device as device_mod
+from ..launch import sharding as sh
 from .blocks import init_linear, mm
 
 
@@ -178,7 +179,7 @@ def mlstm_decode(p, x, state, cfg):
     y, c, n, m = _mlstm_step(state["c"].float(), state["n"].float(), state["m"].float(),
                              q, k, v, if_g[:, 0], F.logsigmoid(if_g[:, 1]))
     for name, t in (("c", c), ("n", n), ("m", m)):
-        state[name].copy_(t)
+        sh.assign(state[name], t)
     return _mlstm_out(p, x, y.reshape(b, 1, di).to(x.dtype)), state
 
 
@@ -253,5 +254,5 @@ def slstm_decode(p, x, state, cfg):
     c, n, m, h = _slstm_step(p, mm(x, p["w_gates"])[:, 0], state["c"], state["n"], state["m"],
                              state["h"].to(x.dtype), x.dtype)
     for name, t in (("c", c), ("n", n), ("m", m), ("h", h)):
-        state[name].copy_(t)
+        sh.assign(state[name], t)
     return mm(h[:, None], p["w_out"]), state

@@ -252,10 +252,35 @@ def test_moe_routing_breaks_ties_by_the_lower_expert():
     assert t_idx[0].tolist() == [0, 1]
 
 
-def test_moe_with_a_mesh_raises():
-    _, tcfg = _cfgs("jamba-v0.1-52b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_forward({}, torch.zeros((1, 2, tcfg.d_model)), tcfg, mesh=object())
+def test_moe_with_a_mesh_matches_the_unsharded_path():
+    """moe_forward under a (1, 1) LM mesh of one gloo rank, on DTensors:
+    the expert-parallel dispatch (shard_map, then inference_ep) against the
+    unsharded gather path, and the explicit ``mesh=`` against the ambient one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharding as tsh
+
+    cfg, tcfg = _cfgs("jamba-v0.1-52b")
+    params = _random_params(cfg, 29)
+    tp = convert.lm_params(jax.tree.map(lambda t: t[0], params["stack0"]["l1"]["ffn"]), "cpu")
+    x = _t(np.random.default_rng(9).standard_normal((2, 40, cfg.d_model)).astype(F32))
+    want_y, want_aux = tmoe.moe_forward(tp, x, tcfg)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = tmesh.make_local_mesh("cpu")
+        for inference in (False, True):
+            cfg_m = dataclasses.replace(tcfg, inference_ep=inference)
+            dp = tsh.distribute(tp, tsh.params_shardings(tp, mesh, inference=inference))
+            dx = tsh.distribute(x, tsh.NamedSharding(mesh, ("data", None, None)))
+            with tsh.use_mesh(mesh):
+                y, aux = tmoe.moe_forward(dp, dx, cfg_m)
+            y2, aux2 = tmoe.moe_forward(dp, dx, cfg_m, mesh=mesh)
+            for got, got_aux in ((y, aux), (y2, aux2)):
+                np.testing.assert_allclose(_np(tsh.full(got)), _np(want_y), atol=BLOCK_TOL)
+                assert float(tsh.full(got_aux)) == pytest.approx(float(want_aux), rel=1e-6)
+    finally:
+        dist.destroy_process_group()
 
 
 # ======================================================================
