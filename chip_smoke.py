@@ -150,7 +150,7 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               the reduced restart: 6 straight steps twice, and 3 steps, a
               checkpoint and 3 resumed steps
 21. mesh_train the train phase again under the LM mesh: a world of one NCCL
-              rank that the script makes (and destroys after phase 25),
+              rank that the script makes (and destroys after phase 26),
               make_local_mesh()'s (1, 1) ("data", "model") mesh, and
               launch.train.main(mesh=) at the train phase's arguments, seed
               and batches: params and moments DTensors laid out by
@@ -180,7 +180,27 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               tensor on meta, no allocation by the card's allocator (its
               count of allocations, memory_allocated() and its peak all
               unchanged); the parameter counts printed
-26. kernels   every kernel against its plain PyTorch version on the card, with
+26. dryrun    the dry run (launch/dryrun.py, meta tensors on a fake production
+              mesh): (a) three production cells through its CLI, each in a
+              process of its own, side by side: qwen2-1.5b train_4k and
+              jamba-v0.1-52b prefill_32k (K6 and K7's route through their
+              meta leg) on (16, 16), deepseek-v3-671b decode_32k (inference
+              EP over both axes) on (2, 16, 16); every record without error,
+              nothing allocated on the card in the child (its allocator's
+              count, memory_allocated() and its peak all 0); per-device
+              flops, bytes, collectives by kind, argument and peak bytes
+              against 80 GB, the three roofline terms (data-sheet
+              arithmetic) and the cell's wall printed; (b) lower_cell's
+              count of the train phase's step (qwen2-1.5b in full, 8 x 256
+              tokens, float32 params and moments, remat "full") on the (1, 1)
+              mesh, held against the same counting around one extra step of
+              mesh_train's world on the card: flops equal, no collective in
+              either, the argument bytes equal to the card's params, moments
+              and batch; the peak estimate beside the card's
+              max_memory_allocated(), the terms beside mesh_train's measured
+              step wall and device time (the extra step's K6 launches count
+              on no path)
+27. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
               2-20 (the mesh phases' launches count on the kernels line): K1-K5 bit-identical; flash attention, also at its largest
               float32 call, its largest windowed call, its largest
@@ -220,6 +240,7 @@ import gc
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -339,7 +360,7 @@ CROSS_BATCH, CROSS_SEQ, RESTART_STEPS = 2, 64, 6
 #: rounds lies within this many of its ulps of a rounding boundary (the
 #: value's own ulp, and its block scale's)
 INT8_BOUNDARY_ULPS = 2
-#: the LM mesh phases (21-25) run in a world of one rank of this backend,
+#: the LM mesh phases (21-26) run in a world of one rank of this backend,
 #: on make_local_mesh()'s (1, 1) ("data", "model") mesh
 MESH_BACKEND = "nccl"
 #: mesh_train against train: bit for bit, or within this relative difference
@@ -352,6 +373,22 @@ MESH_TRAIN_RTOL = 1e-6
 #: them in one reduction, and the rest follows from that rounding
 MOE_ARCH = "deepseek-moe-16b"
 MESH_MOE_LOSS_RTOL, MESH_MOE_GRAD_RTOL = 1e-6, 1e-4
+#: dryrun: production cells (arch, shape, multi-pod) through the dry run's
+#: CLI, each in a process of its own (its fake world of 256 or 512 ranks
+#: never meets this script's NCCL world), side by side; each must end within
+#: the timeout
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False), ("jamba-v0.1-52b", "prefill_32k", False),
+                ("deepseek-v3-671b", "decode_32k", True))
+DRYRUN_TIMEOUT_S = 480
+#: the child: the CLI's main, then what the card's allocator saw, as JSON
+DRYRUN_CHILD = (
+    "import json, sys, torch\n"
+    "from repro_torch.launch import dryrun\n"
+    "dryrun.main(sys.argv[1:])\n"
+    "print(json.dumps({'cuda_initialized': torch.cuda.is_initialized(),\n"
+    "  'allocations': torch.cuda.memory_stats().get('allocation.all.allocated', 0),\n"
+    "  'memory_allocated': torch.cuda.memory_allocated(),\n"
+    "  'max_memory_allocated': torch.cuda.max_memory_allocated()}))\n")
 #: host calls that wait for the card (syncs, and copies out of it)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpyAsync", "cudaMemcpy")
@@ -564,7 +601,9 @@ def main() -> None:
     from repro_torch.core.sdfg import hardware_aware_sdfg, sdfg_from_clusters
     from repro_torch.data import DataConfig, TokenStream
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import work as kwork
     from repro_torch.kernels import maxplus_bellman as kbell
+    from repro_torch.launch import dryrun as tdry
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import mesh as tmesh
     from repro_torch.launch import sharding as tsh
@@ -662,7 +701,7 @@ def main() -> None:
             launches[k][path] = v
 
     # Every wrapper is spied on: per path, the shapes it was given, and the
-    # inputs of its largest call, on which phase 26 times and checks it.
+    # inputs of its largest call, on which phase 27 times and checks it.
     where = {"path": None, "app": None}
     seen = {k: {} for k in ops.LAUNCHES}        # kernel -> {path: Counter(shape)}
     largest = {}                                # kernel -> dict(work, path, app, shape, args, kwargs)
@@ -2316,12 +2355,12 @@ def main() -> None:
               if parted == ["/embed"] else "not identified"),
           "launches": crosscheck_launches, "wall_s": time.perf_counter() - t_phase})
 
-    # -- 21-25. the LM mesh: one rank's world, the local (1, 1) mesh -------------
+    # -- 21-26. the LM mesh: one rank's world, the local (1, 1) mesh -------------
     # The phases run on DTensors over a world of one NCCL rank that the script
-    # makes here and destroys after phase 25.  remesh_restore comes second:
+    # makes here and destroys after phase 26.  remesh_restore comes second:
     # it saves and restores mesh_train's state before the MoE and serve cuts
     # take the card's memory.  The wrappers' spies record no call here
-    # (``where["path"]`` stays None), so phase 26 times the calls of phases
+    # (``where["path"]`` stays None), so phase 27 times the calls of phases
     # 2-20 as before; ops.LAUNCHES counts every launch.
     dist.init_process_group(MESH_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
     mesh = tmesh.make_local_mesh()
@@ -2606,9 +2645,116 @@ def main() -> None:
           "allocations": allocs, "memory_allocated_before": before,
           "memory_allocated_after": after, "max_memory_allocated": peak, "counts": counts,
           "wall_s": time.perf_counter() - t_phase})
+
+    # -- 26. dryrun: the dry run's production cells, and its count of a step --
+    # (a) runs in child processes while (b) runs here
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    children = {}
+    try:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            argv = ["--arch", arch, "--shape", shape] + (["--multi-pod"] if multi_pod else [])
+            children[(arch, shape, multi_pod)] = (subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_CHILD, *argv], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+        # (b) the train phase's step: lower_cell's count on meta on the (1, 1)
+        # mesh, and the same counting around one extra step on the card
+        train_kw = dict(opt_dtype=train_args.opt_dtype, param_dtype=torch.float32,
+                        batch_tokens=(train_args.batch, train_args.seq_len))
+        t = time.perf_counter()
+        meta_rec = tdry.lower_cell(train_cfg, "train_4k", multi_pod=False, mesh=mesh, **train_kw)
+        meta_s = time.perf_counter() - t
+        step_fn, step_args, _ = tdry.cell_step(
+            train_cfg, "train_4k", mesh, gen=torch.Generator(device=dev).manual_seed(0), **train_kw)
+        card_bytes = sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+                         for t in tree_leaves(step_args) if isinstance(t, torch.Tensor))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with tsh.use_mesh(mesh):
+            card, card_out = tdry.count_step(step_fn, step_args)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t
+        card_peak = torch.cuda.max_memory_allocated()
+        del step_fn, step_args, card_out
+        torch.cuda.empty_cache()
+        check(card["cost"]["flops"] == meta_rec["cost"]["flops"],
+              f"the dry run counts {meta_rec['cost']['flops']} flops for the train step, "
+              f"the card's step {card['cost']['flops']}")
+        check(meta_rec["collectives"]["bytes_total"] == card["collectives"]["bytes_total"] == 0
+              and not any(v for k, v in {**meta_rec["collectives"], **card["collectives"]}.items()
+                          if k.startswith("count_")),
+              f"a collective on a world of one: {meta_rec['collectives']}, {card['collectives']}")
+        check(meta_rec["memory"]["argument_bytes"] == card["memory"]["argument_bytes"] == card_bytes,
+              f"argument bytes: dry run {meta_rec['memory']['argument_bytes']}, card "
+              f"{card['memory']['argument_bytes']}, the card's tensors {card_bytes}")
+        device_s = mesh_profiled["device_busy_s"]
+
+        # (a) the production cells' records
+        dry_cells = []
+        for (arch, shape, multi_pod), (proc, t_start) in children.items():
+            try:
+                out, err = proc.communicate(timeout=max(
+                    1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start)))
+            except subprocess.TimeoutExpired:
+                fail(f"the dry run of {arch} {shape} did not end in {DRYRUN_TIMEOUT_S} s")
+            wall = time.perf_counter() - t_start
+            check(proc.returncode == 0, f"the dry run of {arch} {shape} exited "
+                  f"{proc.returncode}: {err[-2000:]}")
+            alloc = json.loads(out.strip().splitlines()[-1])
+            name = f"{arch}__{shape}__{'512' if multi_pod else '256'}"
+            rec = json.loads((tdry.ART / f"{name}.json").read_text())
+            check("error" not in rec and "skipped" not in rec,
+                  f"the dry run of {name}: {rec.get('error', rec.get('skipped'))}")
+            check(alloc["allocations"] == alloc["memory_allocated"]
+                  == alloc["max_memory_allocated"] == 0,
+                  f"the dry run of {name} allocated on the card: {alloc}")
+            mem = rec["memory"]
+            dry_cells.append({
+                "cell": name, "mesh": rec["mesh"], "wall_s": wall, "run_s": rec["run_s"],
+                "flops": rec["cost"]["flops"], "bytes_accessed": rec["cost"]["bytes_accessed"],
+                "collectives": {k: v for k, v in rec["collectives"].items() if v},
+                "charges": rec["charges"], "argument_bytes": mem["argument_bytes"],
+                "peak_bytes": mem["peak_bytes"],
+                "peak_share_of_hbm": mem["peak_bytes"] / tmesh.HW["hbm_bytes"],
+                "roofline_s": rec["roofline"], "model_flops": rec["model_flops"],
+                "grad_accum": rec.get("grad_accum"), "cache_len": rec.get("cache_len"),
+                "child_allocator": alloc})
+    finally:
+        for proc, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit({"phase": "dryrun", "hw_constants": tmesh.HW,
+          "roofline_from": "data-sheet arithmetic: counted work over the H100 SXM's peaks",
+          "cells": dry_cells,
+          "train_step": {
+              "arch": train_cfg.name, "batch": [train_args.batch, train_args.seq_len],
+              "params_dtype": "float32", "remat": train_cfg.remat,
+              "flops_counted_meta": meta_rec["cost"]["flops"],
+              "flops_counted_card": card["cost"]["flops"], "flops_equal": True,
+              "charges_meta": meta_rec["charges"], "charges_card": card["charges"],
+              "bytes_accessed_meta": meta_rec["cost"]["bytes_accessed"],
+              "bytes_accessed_card": card["cost"]["bytes_accessed"],
+              "argument_bytes": meta_rec["memory"]["argument_bytes"],
+              "card_tensor_bytes": card_bytes,
+              "peak_bytes_estimate": meta_rec["memory"]["peak_bytes"],
+              "card_max_memory_allocated": card_peak,
+              "peak_estimate_over_allocator": meta_rec["memory"]["peak_bytes"] / card_peak,
+              "train_phase_peak_bytes": train_peak, "mesh_train_peak_bytes": mesh_peak,
+              "roofline_s": meta_rec["roofline"],
+              "mesh_train_step_wall_s": mesh_step_s, "mesh_train_device_busy_s": device_s,
+              "counted_flops_per_device_s": card["cost"]["flops"] / device_s,
+              "rate_dtype": "float32 params, moments and activations: the bf16 peak of "
+                            "t_compute_s is not this step's rate",
+              "meta_count_s": meta_s, "counted_card_step_s": counted_s},
+          "wall_s": time.perf_counter() - t_phase})
     dist.destroy_process_group()
 
-    # -- 26. kernels against their plain versions --------------------------
+    # -- 27. kernels against their plain versions --------------------------
     def timed(fn, trials=11, reps=10, warm=3):
         """Device ms per call: median over trials of CUDA-event time of
         ``reps`` back-to-back calls.  A sleep kernel first keeps the card
@@ -2807,19 +2953,11 @@ def main() -> None:
 
     # K6 on the inputs of its largest call (jamba's 32k GQA layer), and
     # checked at its largest float32, windowed and lm_prefill calls
-    def attn_pairs(sq, skv, causal, window):
-        """(query, key) pairs the masks keep, per (batch, head)."""
-        i = np.arange(sq, dtype=np.int64)
-        hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
-        lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, dtype=np.int64)
-        return int(np.maximum(hi - lo + 1, 0).sum())
-
     def flash_work(q, k, causal, window):
-        """(bytes of q, k, v and o; flops; peak flop rate of q's type)."""
-        b_, hq, sq, d = q.shape
-        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-        flops = 4 * d * hq * b_ * attn_pairs(sq, k.shape[2], causal, window)
-        return nbytes, flops, BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+        """(bytes of q, k, v and o; flops (``kernels/work.py``, the dry run's
+        charge); peak flop rate of q's type)."""
+        return (*kwork.flash_work(q, k, causal=causal, window=window),
+                BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
 
     def sdpa_for(q, k, v, kw):
         """The library yardstick, timed here only: one
@@ -2975,13 +3113,7 @@ def main() -> None:
     check(max(route["route_y_tol_ratio"], route["route_state_tol_ratio"]) <= 1.0,
           f"ops.mamba_scan lies {route} of SCAN_TOL from the plain route")
     def k7_work(x, dt, a, b, c, h0):
-        bsz, length, d = x.shape
-        # x, dt and y; B and C; a; h0 and h_out.  Per (b, t, d, n) term seven
-        # float32 operations: dt*a, exp, decay*h, (dt*x)*B, the add, h*C and
-        # the sum's add (dt*x is per (b, t, d))
-        nbytes = (3 * x.numel() + 2 * b.numel()) * x.element_size() + a.numel() * 4 \
-            + 2 * h0.numel() * 4
-        return nbytes, 7 * bsz * length * d * a.shape[1] + bsz * length * d
+        return kwork.scan_work(x, a, b, h0)
 
     terms7 = x7.shape[0] * x7.shape[1] * x7.shape[2] * a7.shape[1]
     nbytes7, ops7 = k7_work(x7, dt7, a7, b7, c7, h07)
@@ -3016,19 +3148,12 @@ def main() -> None:
     check(states_equal_full, "the states-only pass differs from the full launch's states")
     check(s_ratio == 0.0, f"the states-only pass is {s_ratio} times the state's limit, not 0")
 
-    def states_work(x, dt, a, b):
-        bsz, length, d = x.shape
-        # x, dt and B in, a in, the states out; per (b, t, d, n) term dt*a,
-        # exp, decay*h, (dt*x)*B and the add
-        nbytes = (2 * x.numel() + b.numel()) * x.element_size() + a.numel() * 4 \
-            + bsz * (-(-length // chunk7)) * d * a.shape[1] * 4
-        return nbytes, 5 * bsz * length * d * a.shape[1] + bsz * length * d
-
     record("mamba_chunk_states", "src/repro_torch/csrc/mamba_scan.cu",
            "src/repro/kernels/mamba_scan.py:96",
            lambda: ops.mamba_chunk_states(x7, dt7, a7, b7, chunk=chunk7),
            lambda: ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, b7, zeros7, chunk=chunk7),
-           s_err, *states_work(x7, dt7, a7, b7), FP32_FLOPS_PER_S, tol_ratio=s_ratio,
+           s_err, *kwork.states_work(x7, a7, b7, chunk=chunk7), FP32_FLOPS_PER_S,
+           tol_ratio=s_ratio,
            tolerance={"state_rtol": rtol7, "state_row_tol": row_tol7, "limit": 0.0},
            equals_full_launch_states=states_equal_full,
            dtype=str(x7.dtype).split(".")[-1], chunk=chunk7,
@@ -3042,15 +3167,11 @@ def main() -> None:
               ref.mamba_combine_ref(dt8, a8, s8, chunk=chunk8))
     c_ratio, c_err = ref.state_excess(kc, pc), max_abs_err(kc, pc)
     del kc, pc
-    # dt in, a in, the local states in and the initial states out; per
-    # (b, chunk, d, n) the decay's multiply and exp, the update's multiply
-    # and add; per (b, t, d) the dt sum's add
     record("mamba_chunk_combine", "src/repro_torch/csrc/mamba_scan.cu",
            "src/repro/kernels/ops.py:219",
            lambda: ops.mamba_chunk_combine(dt8, a8, s8, chunk=chunk8),
            lambda: ref.mamba_combine_ref(dt8, a8, s8, chunk=chunk8),
-           c_err, dt8.numel() * dt8.element_size() + a8.numel() * 4 + 2 * s8.numel() * 4,
-           4 * s8.numel() + dt8.numel(), FP32_FLOPS_PER_S, tol_ratio=c_ratio,
+           c_err, *kwork.combine_work(dt8, a8, s8), FP32_FLOPS_PER_S, tol_ratio=c_ratio,
            tolerance={"state_rtol": rtol7, "state_row_tol": row_tol7}, chunk=chunk8,
            replaces_note="not a Pallas kernel: the lax.scan combine of the reference's "
                          "ops.mamba_scan, between its two Pallas launches",

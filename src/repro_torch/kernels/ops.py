@@ -5,6 +5,9 @@ A CUDA tensor goes to the hand-written kernel in ``csrc/`` or the call
 raises: there is no size threshold below which the plain version takes
 over, and no fallback when the library cannot be built or a launch fails.
 Each wrapper adds one to :data:`LAUNCHES` where it launches its kernel.
+Flash attention and the Mamba scan's three wrappers also take ``meta``
+tensors: they return a ``meta`` output of the kernel's shape and type
+(the dry run, ``launch/dryrun.py``), after the checks the card makes.
 A DTensor raises: the models run each rank's shard through
 ``launch.sharding.local_call``, so a kernel sees its local tensors.
 
@@ -23,7 +26,7 @@ import contextlib
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import _build, ref
+from . import _build, ref, work
 from .ref import RelaxCSR, SynapseCSR
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
@@ -58,6 +61,21 @@ SCAN_STATES = (8, 16)
 SCAN_SMEM_BYTES = 48 * 1024
 
 
+#: observers of each call of the flash attention and Mamba scan wrappers
+#: (the dry run's counter), innermost last.  The innermost is called as
+#: ``hook(name, (nbytes, flops), run)`` on every device, with the call's
+#: work from :mod:`.work`, and returns ``run()``, the call's leg.
+CHARGE_HOOKS: list = []
+
+
+def _charged(name: str, work_of, run):
+    """``run()``, through the innermost charge hook if there is one
+    (``work_of()`` gives the call's work)."""
+    if not CHARGE_HOOKS:
+        return run()
+    return CHARGE_HOOKS[-1](name, work_of(), run)
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
     for k in LAUNCHES:
@@ -80,6 +98,15 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}; use a CPU or CUDA tensor")
     return False
+
+
+def _leg(*ts: torch.Tensor) -> str:
+    """The route of a wrapper that also takes ``meta`` tensors: ``"meta"``
+    when every operand is a plain ``meta`` tensor, else ``"cpu"`` or
+    ``"cuda"`` by :func:`_on_cpu`."""
+    if not any(isinstance(t, DTensor) for t in ts) and all(t.is_meta for t in ts):
+        return "meta"
+    return "cpu" if _on_cpu(*ts) else "cuda"
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -293,8 +320,14 @@ def flash_attention(
 
 
 def _flash_forward(q, k, v, causal, window):
+    return _charged("flash_attention", lambda: work.flash_work(q, k, causal=causal, window=window),
+                    lambda: _flash_leg(q, k, v, causal, window))
+
+
+def _flash_leg(q, k, v, causal, window):
     b, hq, sq, d = q.shape
-    if _on_cpu(q, k, v):
+    leg = _leg(q, k, v)
+    if leg == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
         raise TypeError(
@@ -305,6 +338,8 @@ def _flash_forward(q, k, v, causal, window):
         raise ValueError(f"flash_attention takes head dims {FLASH_HEAD_DIMS}, got {d}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dimension")
+    if leg == "meta":
+        return torch.empty((b, hq, sq, d), dtype=q.dtype, device="meta")
     if q.dtype == torch.bfloat16:   # the tensor-core body loads its tiles by TMA
         q, k, v = (_aligned_rows(t) for t in (q, k, v))
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
@@ -396,10 +431,10 @@ def spike_input(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
 # ======================================================================
 # K7: chunked selective scan
 # ======================================================================
-def _scan_on_cpu(x, dt, a, b, c, h0, chunk) -> bool:
-    """Whether the chunk scan's operands lie on the CPU, after checking their
-    shapes (on every device) and what the kernel takes (on CUDA); ``c`` and
-    ``h0`` may be None."""
+def _scan_leg(x, dt, a, b, c, h0, chunk) -> str:
+    """The chunk scan's leg (:func:`_leg`), after checking its operands'
+    shapes (on every device) and what the kernel takes (on CUDA and meta);
+    ``c`` and ``h0`` may be None."""
     bsz, length, d = x.shape
     n = a.shape[1]
     nc = -(-length // chunk)
@@ -411,8 +446,9 @@ def _scan_on_cpu(x, dt, a, b, c, h0, chunk) -> bool:
             f"b {tuple(b.shape)}, c {None if c is None else tuple(c.shape)}, "
             f"h0 {None if h0 is None else tuple(h0.shape)} at chunk {chunk}"
         )
-    if _on_cpu(*(t for t in (x, dt, a, b, c, h0) if t is not None)):
-        return True
+    leg = _leg(*(t for t in (x, dt, a, b, c, h0) if t is not None))
+    if leg == "cpu":
+        return leg
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mamba_chunk_scan takes float32 or bfloat16 x, got {x.dtype}")
     for t, name in ((x, "x"), (dt, "dt"), (b, "b"), (c, "c")):
@@ -426,7 +462,7 @@ def _scan_on_cpu(x, dt, a, b, c, h0, chunk) -> bool:
     if chunk < 1 or 2 * chunk * n * 4 > SCAN_SMEM_BYTES:
         raise ValueError(f"mamba_chunk_scan takes 1 <= chunk <= "
                          f"{SCAN_SMEM_BYTES // (8 * n)} at N = {n}, got {chunk}")
-    return False
+    return leg
 
 
 def _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, name):
@@ -453,11 +489,17 @@ def mamba_chunk_scan(
     (B, L, N) b, c from the chunks' initial states h0 (B, ceil(L/chunk),
     D, N) -> ``(y, h_final)`` (see ``ref.mamba_chunk_scan_ref``).  L need not
     be a multiple of ``chunk``; nothing is padded."""
-    if _scan_on_cpu(x, dt, a, b, c, h0, chunk):
+    return _charged("mamba_chunk_scan", lambda: work.scan_work(x, a, b, h0),
+                    lambda: _chunk_scan_leg(x, dt, a, b, c, h0, chunk))
+
+
+def _chunk_scan_leg(x, dt, a, b, c, h0, chunk):
+    leg = _scan_leg(x, dt, a, b, c, h0, chunk)
+    if leg == "cpu":
         return ref.mamba_chunk_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
-    if y.numel():
+    if y.numel() and leg == "cuda":
         _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, "mamba_chunk_scan")
     return y, h_out
 
@@ -468,13 +510,19 @@ def mamba_chunk_states(
     """Every chunk's end state (B, ceil(L/chunk), D, N) float32, each chunk
     scanned from zero: the states of :func:`mamba_chunk_scan` from zero
     states bit for bit, without y (K7's states-only launch on the card)."""
+    return _charged("mamba_chunk_states", lambda: work.states_work(x, a, b, chunk=chunk),
+                    lambda: _states_leg(x, dt, a, b, chunk))
+
+
+def _states_leg(x, dt, a, b, chunk):
     bsz, length, d = x.shape
     nc = -(-length // chunk)
-    if _scan_on_cpu(x, dt, a, b, None, None, chunk):
+    leg = _scan_leg(x, dt, a, b, None, None, chunk)
+    if leg == "cpu":
         zeros = torch.zeros((bsz, nc, d, a.shape[1]), dtype=torch.float32, device=x.device)
         return ref.mamba_chunk_scan_ref(x, dt, a, b, b, zeros, chunk=chunk)[1]
     h_out = torch.empty((bsz, nc, d, a.shape[1]), dtype=torch.float32, device=x.device)
-    if h_out.numel():
+    if h_out.numel() and leg == "cuda":
         _scan_launch(x, dt, a, b, None, None, None, h_out, chunk, "mamba_chunk_states")
     return h_out
 
@@ -491,7 +539,15 @@ def mamba_chunk_combine(
     if s_local.shape != (bsz, nc, d, n) or a.shape != (d, n):
         raise ValueError(f"shape mismatch: dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
                          f"s_local {tuple(s_local.shape)} at chunk {chunk}")
-    if _on_cpu(dt, a, s_local):
+    return _charged("mamba_chunk_combine", lambda: work.combine_work(dt, a, s_local),
+                    lambda: _combine_leg(dt, a, s_local, chunk))
+
+
+def _combine_leg(dt, a, s_local, chunk):
+    bsz, length, d = dt.shape
+    n = a.shape[1]
+    leg = _leg(dt, a, s_local)
+    if leg == "cpu":
         return ref.mamba_combine_ref(dt, a, s_local, chunk=chunk)
     if dt.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mamba_chunk_combine takes float32 or bfloat16 dt, got {dt.dtype}")
@@ -499,7 +555,7 @@ def mamba_chunk_combine(
     _check(a, torch.float32, "a")
     _check(s_local, torch.float32, "s_local")
     h_init = torch.empty_like(s_local)
-    if h_init.numel() == 0:
+    if h_init.numel() == 0 or leg == "meta":
         return h_init
     fn = _build.library("mamba_scan").mamba_chunk_combine
     with _launch_on(dt) as stream:

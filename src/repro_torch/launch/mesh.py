@@ -12,6 +12,10 @@ this rank's device, with the production axis names.
 Importing this module touches no device and no process group; the meshes
 are built inside the functions, after the caller has initialised the
 group (``torch.distributed.init_process_group``).
+
+:data:`HW` holds the per-device constants of the dry run's roofline terms
+(``launch/dryrun.py``): NVIDIA H100 SXM data-sheet figures, not
+measurements.
 """
 
 from __future__ import annotations
@@ -59,3 +63,13 @@ def make_local_mesh(device_type: str = "cuda"):
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_local_mesh('cuda') needs a CUDA device; pass 'cpu' on the host")
     return DeviceMesh(device_type, [[dist.get_rank()]], mesh_dim_names=("data", "model"))
+
+
+HW = {
+    # NVIDIA H100 SXM (H100 Tensor Core GPU data sheet, SXM5 part) per-device
+    # constants for the roofline terms; the keys are the reference's
+    "peak_flops_bf16": 989e12,   # FLOP/s, dense bf16 on the tensor cores
+    "hbm_bw": 3.35e12,           # B/s, HBM3
+    "ici_bw": 450e9,             # B/s, NVLink 4 in one direction (900e9 both ways)
+    "hbm_bytes": 80e9,           # capacity
+}

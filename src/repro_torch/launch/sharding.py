@@ -346,6 +346,78 @@ def embedding(tokens, table):
     return x.redistribute(mesh, tok_pls)
 
 
+def split_dim(t, dim: int, sizes) -> torch.Tensor:
+    """``t.unflatten(dim, sizes)``.  A DTensor whose shards of ``dim`` would
+    not split evenly into ``sizes[0]`` (say 12 heads over a model axis of
+    16) is first replicated along ``dim``: the all-gather GSPMD inserts
+    where a reshape splits a sharded dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(t, DTensor):
+        dim = dim % t.dim()
+        pls = tuple(t.placements)
+        split = [i for i, p in enumerate(pls) if isinstance(p, Shard) and p.dim == dim]
+        if sizes[0] % math.prod(t.device_mesh.size(i) for i in split):
+            t = t.redistribute(t.device_mesh, [Replicate() if i in split else p
+                                               for i, p in enumerate(pls)])
+    return t.unflatten(dim, sizes)
+
+
+class _MergeDims(torch.autograd.Function):
+    """``flatten(dim, dim + 1)`` whose backward splits the gradient by
+    :func:`split_dim`: the gradient may come back sharded over the merged
+    dim where its first factor does not divide (DTensor's own view
+    backward refuses that)."""
+
+    @staticmethod
+    def forward(ctx, t, dim):
+        ctx.dim, ctx.sizes = dim, (t.shape[dim], t.shape[dim + 1])
+        return t.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.sizes), None
+
+
+def merge_dims(t, dim: int) -> torch.Tensor:
+    """``t.flatten(dim, dim + 1)`` (say heads and head dim into one); on a
+    DTensor its gradient is split back by :func:`split_dim`."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t.flatten(dim, dim + 1)
+    return _MergeDims.apply(t, dim % t.dim())
+
+
+def per_shard(fn, t):
+    """``fn(t)``, where ``fn`` keeps ``t``'s shape and mixes no elements
+    across a dim that a mesh axis splits (an elementwise op, a scan along a
+    dim no axis splits).  A DTensor's shards each go through ``fn`` where
+    they lie (``local_map``), so its backward runs on local tensors too:
+    DTensor has no rule for some backward ops (``log_sigmoid_backward``;
+    ``flip``, in the backward of ``cumsum``, on torch 2.11)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(t, DTensor):
+        return fn(t)
+    pls = tuple(Replicate() if isinstance(p, Partial) else p for p in t.placements)
+    return local_map(fn, out_placements=(pls,), in_placements=(pls,),
+                     device_mesh=t.device_mesh, redistribute_inputs=True)(t)
+
+
+def like(t, ref):
+    """``t`` laid out as ``ref`` where both are DTensors (a partial sum of
+    ``ref``'s read as replicated), else as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if isinstance(t, DTensor) and isinstance(ref, DTensor):
+        pls = tuple(Replicate() if isinstance(p, Partial) else p for p in ref.placements)
+        if tuple(t.placements) != pls:
+            return t.redistribute(ref.device_mesh, pls)
+    return t
+
+
 def assign(dst, src) -> None:
     """``dst.copy_(src)``, with a DTensor ``src`` laid out as ``dst`` first."""
     from torch.distributed.tensor import DTensor

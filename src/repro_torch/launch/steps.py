@@ -18,6 +18,7 @@ from ..models import transformer as tf
 from ..optim import (AdamWConfig, adamw_update, cosine_schedule, decompress_int8,
                      ef_compress_gradients)
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .sharding import split_dim
 
 
 def loss_and_grads(params, batch: dict, cfg: ArchConfig):
@@ -60,8 +61,9 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum: int = 1,
         if accum == 1:
             loss, grads = loss_and_grads(params, batch, cfg)
         else:
-            micro = {k: t.reshape(accum, t.shape[0] // accum, *t.shape[1:])
-                     for k, t in batch.items()}
+            # a batch sharded over more ranks than a microbatch has rows is
+            # gathered first (sharding.split_dim)
+            micro = {k: split_dim(t, 0, (accum, t.shape[0] // accum)) for k, t in batch.items()}
             loss = 0.0
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
                              params)

@@ -78,11 +78,10 @@ def _sdpa(q, k, v, *, causal, window, q_offset=0, kv_len=None):
 
 def _project(p, x, name, n_heads, dh):
     """(B, S, D) -> (B, n_heads, S, dh) through ``w{name}`` (+ ``b{name}``)."""
-    b, s, _ = x.shape
     y = mm(x, p["w" + name])
     if "b" + name in p:
         y = y + p["b" + name]
-    return y.reshape(b, s, n_heads, dh).transpose(1, 2)
+    return sh.split_dim(y, -1, (n_heads, dh)).transpose(1, 2)
 
 
 # ======================================================================
@@ -104,7 +103,7 @@ def init_gqa(gen, cfg, *, stack=(), dtype=torch.float32):
 
 def gqa_forward(p, x, cfg, *, positions=None, window=None):
     """Training / prefill self-attention. x: (B, S, D)."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -113,7 +112,7 @@ def gqa_forward(p, x, cfg, *, positions=None, window=None):
     v = _project(p, x, "v", hkv, dh)
     w = window if window is not None else cfg.window
     o = _flash(q, k, v, w or 0)
-    return mm(o.transpose(1, 2).reshape(b, s, hq * dh), p["wo"])
+    return mm(sh.merge_dims(o.transpose(1, 2), 2), p["wo"])
 
 
 def _flash(q, k, v, window: int):
@@ -132,6 +131,23 @@ def _flash(q, k, v, window: int):
     heads = "model" if q.shape[1] % n_model == 0 and k.shape[1] % n_model == 0 else None
     spec = sh._fit(mesh, q.shape, (sh.batch_axes(mesh), heads, None, None))
     return sh.local_call(attend, (q, k, v), [spec] * 3, [spec], mesh)
+
+
+def _per_head(fn, q, k, v):
+    """``fn(q, k, v)``, attention over (B, H, S, D) tensors.  On DTensors
+    whose head counts divide ``"model"`` each rank runs it on its own batch
+    and heads (``local_call``, as :func:`_flash`): an einsum over a batch
+    and a head dim that both are sharded is refused by torch 2.11's
+    DTensor.  Otherwise (a sequence-sharded decode cache) it runs on the
+    DTensors as they are."""
+    mesh = getattr(q, "device_mesh", None)
+    if mesh is None:
+        return fn(q, k, v)
+    n_model = sh.axis_sizes(mesh)["model"]
+    if q.shape[1] % n_model or k.shape[1] % n_model:
+        return fn(q, k, v)
+    spec = sh._fit(mesh, q.shape, (sh.batch_axes(mesh), "model", None, None))
+    return sh.local_call(fn, (q, k, v), [spec] * 3, [spec], mesh)
 
 
 def gqa_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -167,14 +183,18 @@ def gqa_decode(p, x, cache, length: int, cfg):
     sh.write_slot(ck, 2, slot, k[:, :, 0])
     sh.write_slot(cv, 2, slot, v[:, :, 0])
     kv_len = min(length + 1, cap)
-    g = hq // hkv
-    qg = q[:, :, 0].reshape(b, hkv, g, dh).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, ck.float()) / math.sqrt(dh)
-    s = s.masked_fill(torch.arange(cap, device=x.device) >= kv_len, float("-inf"))
-    prob = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bhsd->bhgd", prob, cv.float())
-    o = o.to(x.dtype).reshape(b, 1, hq * dh)
-    return mm(o, p["wo"]), cache
+    # each KV head's query group; KV heads that do not divide the model axis
+    # are gathered first (the cache is then split by sequence)
+    qg = sh.split_dim(q[:, :, 0], 1, (hkv, hq // hkv)).float()
+
+    def attend(qg, ck, cv):
+        s = torch.einsum("bhgd,bhsd->bhgs", qg, ck.float()) / math.sqrt(dh)
+        s = s.masked_fill(torch.arange(cap, device=qg.device) >= kv_len, float("-inf"))
+        prob = torch.softmax(s, dim=-1)
+        return torch.einsum("bhgs,bhsd->bhgd", prob, cv.float())
+
+    o = _per_head(attend, qg, ck, cv)
+    return mm(o.to(x.dtype).flatten(1).unsqueeze(1), p["wo"]), cache
 
 
 # ======================================================================
@@ -196,9 +216,8 @@ def init_mla(gen, cfg, *, stack=(), dtype=torch.float32):
 
 def _mla_query(p, x, cfg, positions):
     """(q_nope (B, h, S, dn), q_rope (B, h, S, dr) rotated)."""
-    b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim
-    q = mm(mm(x, p["wq_a"]), p["wq_b"]).reshape(b, s, h, dn + dr).transpose(1, 2)
+    q = sh.split_dim(mm(mm(x, p["wq_a"]), p["wq_b"]), -1, (h, dn + dr)).transpose(1, 2)
     return q[..., :dn], apply_rope(q[..., dn:], positions[:, None, :], theta=cfg.rope_theta)
 
 
@@ -218,13 +237,14 @@ def mla_forward(p, x, cfg, *, positions=None):
         positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope = _mla_query(p, x, cfg, positions)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
-    k_nope = mm(c_kv, p["wk_b"]).reshape(b, s, h, dn).transpose(1, 2)
-    v = mm(c_kv, p["wv_b"]).reshape(b, s, h, dv).transpose(1, 2)
+    k_nope = sh.split_dim(mm(c_kv, p["wk_b"]), -1, (h, dn)).transpose(1, 2)
+    v = sh.split_dim(mm(c_kv, p["wv_b"]), -1, (h, dv)).transpose(1, 2)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     # the shared RoPE key is broadcast over the heads, not copied per head
     k_full = torch.cat([k_nope, k_rope.expand(b, h, s, dr)], dim=-1)
-    o = _sdpa(q_full, k_full, v, causal=True, window=0)     # scale 1/sqrt(dn + dr)
-    return mm(o.transpose(1, 2).reshape(b, s, h * dv), p["wo"])
+    o = _per_head(lambda q, k, v: _sdpa(q, k, v, causal=True, window=0),   # 1/sqrt(dn + dr)
+                  q_full, k_full, v)
+    return mm(sh.merge_dims(o.transpose(1, 2), 2), p["wo"])
 
 
 def mla_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -244,7 +264,6 @@ def mla_decode(p, x, cache, length: int, cfg):
     ``dynamic_update_slice`` clamps them, and keys up to ``length`` attend."""
     b = x.shape[0]
     h, dn, dr, dv = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
-    rkv = cfg.mla_kv_rank
     length = int(length)
     pos = torch.full((b, 1), length, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_query(p, x, cfg, pos)               # (B, h, 1, dn), (B, h, 1, dr)
@@ -257,7 +276,7 @@ def mla_decode(p, x, cache, length: int, cfg):
 
     # absorbed scores: q_nope . (W_kb c) = (q_nope W_kb^T) . c
     ckv = c_kv.float()
-    wk = p["wk_b"].reshape(rkv, h, dn).float()
+    wk = sh.split_dim(p["wk_b"], -1, (h, dn)).float()
     q_lat = torch.einsum("bhod,rhd->bhor", q_nope.float(), wk)          # (B, h, 1, rkv)
     s_lat = torch.einsum("bhor,bsr->bhos", q_lat, ckv)                  # (B, h, 1, S)
     s_rope = torch.einsum("bhod,bsd->bhos", q_rope.float(), k_rope.float())
@@ -266,7 +285,7 @@ def mla_decode(p, x, cache, length: int, cfg):
                               float("-inf"))
     prob = torch.softmax(s_all, dim=-1)
     ctx_lat = torch.einsum("bhos,bsr->bhor", prob, ckv)
-    wv = p["wv_b"].reshape(rkv, h, dv).float()
+    wv = sh.split_dim(p["wv_b"], -1, (h, dv)).float()
     o = torch.einsum("bhor,rhd->bhod", ctx_lat, wv)
     o = o.to(x.dtype).transpose(1, 2).reshape(b, 1, h * dv)
     return mm(o, p["wo"]), cache

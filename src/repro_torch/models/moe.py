@@ -213,7 +213,7 @@ def _local_moe(x_loc, router, w_gate, w_up, w_down, *, cfg, mesh, expert_axes=("
     h = F.silu(mm(expert_in, w_gate)) * mm(expert_in, w_up)
     expert_out = mm(h, w_down).reshape(e_loc * c, -1)
     expert_out = torch.cat([expert_out, expert_out.new_zeros((1, expert_out.shape[1]))])
-    y_partial = torch.zeros_like(expert_out[:t])
+    y_partial = expert_out.new_zeros((t, expert_out.shape[1]))
     for j in range(k):
         w = (gates[:, j] * keep[:, j]).to(x_loc.dtype)[:, None]
         y_partial = y_partial + expert_out[slot[:, j]] * w
@@ -320,4 +320,6 @@ def moe_forward(p, x, cfg, *, mesh=None):
                              mesh)
     if "shared" in p:
         y = y + swiglu_ffn(p["shared"], flat)
-    return y.reshape(b, s, -1), aux
+    # back in the tokens' layout: the sum may shard the tokens over more
+    # axes than the batch's, which B x S cannot split into
+    return sh.like(y, flat).reshape(b, s, -1), aux

@@ -93,7 +93,9 @@ def _mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: int):
     nc = q.shape[2] // chunk
     qc, kc, vc = (t.reshape(b, h, nc, chunk, dh).float() for t in (q, k, v))
     ic = i_gate.reshape(b, h, nc, chunk).float()
-    lf_cum = torch.cumsum(F.logsigmoid(f_gate.reshape(b, h, nc, chunk).float()), dim=-1)
+    # along each chunk's own steps: no mesh axis splits that dim
+    lf_cum = sh.per_shard(lambda f: torch.cumsum(F.logsigmoid(f), dim=-1),
+                          f_gate.reshape(b, h, nc, chunk).float())
     lf_tot = lf_cum[..., -1]
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
 
@@ -131,8 +133,7 @@ def _mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: int):
 
 def _mlstm_gates(p, x, cfg):
     """(i, f) pre-activations (B, H, L): ``x @ w_if + b_if`` read as (2, h)."""
-    b, length, _ = x.shape
-    if_g = (mm(x, p["w_if"]) + p["b_if"]).reshape(b, length, 2, cfg.n_heads)
+    if_g = sh.split_dim(mm(x, p["w_if"]) + p["b_if"], -1, (2, cfg.n_heads))
     return if_g[:, :, 0].transpose(1, 2), if_g[:, :, 1].transpose(1, 2)
 
 
@@ -143,15 +144,14 @@ def _mlstm_out(p, x, y):
 
 def mlstm_forward(p, x, cfg):
     """Full-sequence mLSTM block, chunkwise. x: (B, L, D) -> (B, L, D)."""
-    b, length, _ = x.shape
     h, di = cfg.n_heads, cfg.xlstm_d_inner
     dh = di // h
-    q, k, v = (t.reshape(b, length, h, dh).transpose(1, 2)
+    q, k, v = (sh.split_dim(t, -1, (h, dh)).transpose(1, 2)
                for t in mm(x, p["w_qkv"]).chunk(3, dim=-1))
     q = q / math.sqrt(dh)
     i_gate, f_gate = _mlstm_gates(p, x, cfg)
     y = _mlstm_chunkwise(q, k, v, i_gate, f_gate, cfg.xlstm_chunk)
-    return _mlstm_out(p, x, y.transpose(1, 2).reshape(b, length, di))
+    return _mlstm_out(p, x, sh.merge_dims(y.transpose(1, 2), 2))
 
 
 def mlstm_init_state(cfg, batch, dtype=torch.float32, device=None):
@@ -202,7 +202,7 @@ def _slstm_step(p, wx_t, c, n, m, h, out_dtype):
     input's type), as the reference rounds it every step.
     Returns (c, n, m, h)."""
     z, i, f, o = (wx_t + mm(h, p["r_gates"])).float().chunk(4, dim=-1)
-    log_f = F.logsigmoid(f)
+    log_f = sh.per_shard(F.logsigmoid, f)
     m_new = torch.maximum(log_f + m, i)
     i_eff = torch.exp(i - m_new)
     f_eff = torch.exp(log_f + m - m_new)

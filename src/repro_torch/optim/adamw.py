@@ -19,6 +19,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..launch.sharding import split_dim
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -36,23 +37,29 @@ class AdamWConfig:
 
 def _pad_last(x: torch.Tensor, block: int) -> torch.Tensor:
     pad = (-x.shape[-1]) % block
-    return F.pad(x, (0, pad)) if pad else x
+    if not pad:
+        return x
+    # a concatenation of zeros, not F.pad: torch 2.11's DTensor fails on the
+    # padding of a sharded tensor
+    return torch.cat([x, torch.zeros((*x.shape[:-1], pad), dtype=x.dtype, device=x.device)],
+                     dim=-1)
 
 
 def _quantize(x: torch.Tensor, block: int):
     xp = _pad_last(x, block)
     nb = xp.shape[-1] // block
-    blocks = xp.reshape(*xp.shape[:-1], nb, block)
+    # a sharded last dim whose shards do not hold whole blocks is gathered
+    blocks = split_dim(xp, -1, (nb, block))
     scale = blocks.abs().amax(dim=-1, keepdim=True) / 127.0
     scale = torch.where(scale == 0, 1.0, scale)
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
-    return q.reshape(xp.shape), scale[..., 0].float()
+    return q.flatten(-2), scale[..., 0].float()
 
 
 def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape, block: int) -> torch.Tensor:
     nb = q.shape[-1] // block
-    blocks = q.reshape(*q.shape[:-1], nb, block).float()
-    full = (blocks * scale[..., None]).reshape(q.shape)
+    blocks = split_dim(q, -1, (nb, block)).float()
+    full = (blocks * scale[..., None]).flatten(-2)
     return full[..., : shape[-1]]
 
 
