@@ -199,7 +199,14 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               and batch; the peak estimate beside the card's
               max_memory_allocated(), the terms beside mesh_train's measured
               step wall and device time (the extra step's K6 launches count
-              on no path)
+              on no path); (c) in a process of its own, beside (a): reduced
+              deepseek-v3's train step on a fake (2, 2, 2) ("pod", "data",
+              "model") mesh, microbatches of 2 rows on 4 batch ranks, so the
+              MoE's tokens shard over more axes than (B, S) carry (the
+              production cell deepseek-v3 train_4k on (2, 16, 16) in small):
+              it lowers, each MoE output's local shard is the one its
+              placements give, and the MoE input's gradient comes back in the
+              input's own layout
 27. kernels   every kernel against its plain PyTorch version on the card, with
               times and bounds, on the inputs of its largest call in phases
               2-20 (the mesh phases' launches count on the kernels line): K1-K5 bit-identical; flash attention, also at its largest
@@ -256,6 +263,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: the flop rates count an FMA, one instruction, as two flops
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12    # TF32 on the tensor cores
 FP64_FLOPS_PER_S = 34e12     # float64 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # bf16 on the tensor cores
 #: a (max,+) term is two float32 instructions (FADD, FMNMX), so it takes
@@ -380,6 +388,47 @@ MESH_MOE_LOSS_RTOL, MESH_MOE_GRAD_RTOL = 1e-6, 1e-4
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False), ("jamba-v0.1-52b", "prefill_32k", False),
                 ("deepseek-v3-671b", "decode_32k", True))
 DRYRUN_TIMEOUT_S = 480
+#: dryrun (c): reduced deepseek-v3's train step on a fake (2, 2, 2) pod
+#: mesh, microbatches of fewer rows than the batch ranks (its own process:
+#: a fake world of 8 ranks); prints the MoE layer's layouts and the count
+DRYRUN_POD_MOE_CHILD = (
+    "import dataclasses, json, torch, torch.distributed as dist\n"
+    "from torch.distributed.device_mesh import init_device_mesh\n"
+    "from torch.distributed.tensor import Shard\n"
+    "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+    "from repro_torch.configs import get_arch, reduced\n"
+    "from repro_torch.launch import dryrun, sharding as tsh\n"
+    "from repro_torch.models import moe as tmoe\n"
+    "cfg = reduced(get_arch('deepseek-v3-671b'))\n"
+    "cfg = dataclasses.replace(cfg, stacks=tuple((1, s) for _, s in cfg.stacks))\n"
+    "seen, moe_forward = [], tmoe.moe_forward\n"
+    "def spy(p, x, c, **kw):\n"
+    "    grads = []\n"
+    "    x.register_hook(lambda g: grads.append([str(q) for q in g.placements]))\n"
+    "    y, aux = moe_forward(p, x, c, **kw)\n"
+    "    local = list(y.shape)\n"
+    "    for i, q in enumerate(y.placements):\n"
+    "        if isinstance(q, Shard):\n"
+    "            local[q.dim] //= y.device_mesh.size(i)\n"
+    "    seen.append({'x': [str(q) for q in x.placements], 'y_shape': list(y.shape),\n"
+    "                 'y_local': list(y.to_local().shape), 'y_local_of_placements': local,\n"
+    "                 'x_grad': grads})\n"
+    "    return y, aux\n"
+    "tmoe.moe_forward = spy\n"
+    "dist.init_process_group('fake', store=FakeStore(), rank=0, world_size=8)\n"
+    "try:\n"
+    "    mesh = init_device_mesh('cuda', (2, 2, 2), mesh_dim_names=('pod', 'data', 'model'))\n"
+    "    step, args, notes = dryrun.cell_step(cfg, 'train_4k', mesh, accum=2,\n"
+    "                                         batch_tokens=(4, 16))\n"
+    "    with tsh.use_mesh(mesh):\n"
+    "        parts, _ = dryrun.count_step(step, args)\n"
+    "finally:\n"
+    "    dist.destroy_process_group()\n"
+    "print(json.dumps({'arch': cfg.name, 'mesh': [2, 2, 2], 'batch_tokens': [4, 16],\n"
+    "  'grad_accum': notes['grad_accum'], 'flops': parts['cost']['flops'],\n"
+    "  'collectives': {k: v for k, v in parts['collectives'].items() if v}, 'moe': seen,\n"
+    "  'allocations': torch.cuda.memory_stats().get('allocation.all.allocated', 0),\n"
+    "  'max_memory_allocated': torch.cuda.max_memory_allocated()}))\n")
 #: the child: the CLI's main, then what the card's allocator saw, as JSON
 DRYRUN_CHILD = (
     "import json, sys, torch\n"
@@ -623,6 +672,7 @@ def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     # -- 1. env -----------------------------------------------------------
     smi = subprocess.run(
@@ -2647,7 +2697,7 @@ def main() -> None:
           "wall_s": time.perf_counter() - t_phase})
 
     # -- 26. dryrun: the dry run's production cells, and its count of a step --
-    # (a) runs in child processes while (b) runs here
+    # (a) and (c) run in child processes while (b) runs here
     t_phase = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
@@ -2658,6 +2708,9 @@ def main() -> None:
             children[(arch, shape, multi_pod)] = (subprocess.Popen(
                 [sys.executable, "-c", DRYRUN_CHILD, *argv], cwd=ROOT, env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter())
+        children["pod_moe"] = (subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_POD_MOE_CHILD], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter())
 
         # (b) the train phase's step: lower_cell's count on meta on the (1, 1)
         # mesh, and the same counting around one extra step on the card
@@ -2692,6 +2745,23 @@ def main() -> None:
               f"argument bytes: dry run {meta_rec['memory']['argument_bytes']}, card "
               f"{card['memory']['argument_bytes']}, the card's tensors {card_bytes}")
         device_s = mesh_profiled["device_busy_s"]
+
+        # (c) the pod mesh's MoE cell
+        proc, t_start = children["pod_moe"]
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"the pod-mesh MoE cell did not end in {DRYRUN_TIMEOUT_S} s")
+        del children["pod_moe"]
+        check(proc.returncode == 0,
+              f"the pod-mesh MoE cell exited {proc.returncode}: {err[-2000:]}")
+        pod_moe = json.loads(out.strip().splitlines()[-1])
+        pod_moe["wall_s"] = time.perf_counter() - t_start
+        check(len(pod_moe["moe"]) == pod_moe["grad_accum"] == 2 and all(
+            m["y_local"] == m["y_local_of_placements"] and m["x_grad"] == [m["x"]]
+            for m in pod_moe["moe"]), f"the pod-mesh MoE cell's layouts: {pod_moe['moe']}")
+        check(pod_moe["allocations"] == pod_moe["max_memory_allocated"] == 0,
+              f"the pod-mesh MoE cell allocated on the card: {pod_moe}")
 
         # (a) the production cells' records
         dry_cells = []
@@ -2730,7 +2800,7 @@ def main() -> None:
                 proc.wait()
     emit({"phase": "dryrun", "hw_constants": tmesh.HW,
           "roofline_from": "data-sheet arithmetic: counted work over the H100 SXM's peaks",
-          "cells": dry_cells,
+          "cells": dry_cells, "pod_moe_cell": pod_moe,
           "train_step": {
               "arch": train_cfg.name, "batch": [train_args.batch, train_args.seq_len],
               "params_dtype": "float32", "remat": train_cfg.remat,
@@ -2954,10 +3024,15 @@ def main() -> None:
     # K6 on the inputs of its largest call (jamba's 32k GQA layer), and
     # checked at its largest float32, windowed and lm_prefill calls
     def flash_work(q, k, causal, window):
-        """(bytes of q, k, v and o; flops (``kernels/work.py``, the dry run's
-        charge); peak flop rate of q's type)."""
-        return (*kwork.flash_work(q, k, causal=causal, window=window),
-                BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+        """(bytes of q, k, v and o; operations; their peak rate) of the
+        body q's type takes.  The flops are ``kernels/work.py``'s (the dry
+        run's charge): bf16 at the tensor cores' bf16 rate; float32 as the
+        3xTF32 body issues them, three TF32 products per float32 product at
+        TF32's rate."""
+        nbytes, flops = kwork.flash_work(q, k, causal=causal, window=window)
+        if q.dtype == torch.bfloat16:
+            return nbytes, flops, BF16_FLOPS_PER_S
+        return nbytes, 3 * flops, TF32_FLOPS_PER_S
 
     def sdpa_for(q, k, v, kw):
         """The library yardstick, timed here only: one
@@ -3037,12 +3112,19 @@ def main() -> None:
         check(row["tol_ratio"] <= 1.0,
               f"flash attention ({key} call) is {row['tol_ratio']} times its tolerance "
               f"(max abs err {row['max_abs_err']})")
+    # the plain version and SDPA run with TF32 off (set in phase 1:
+    # allow_tf32 False, float32 matmul precision "highest")
     for key in ("float32", "windowed", "lm_prefill", "train"):
         row, (q, k, v, kw, sdpa, nbytes, flops, peak) = cases[key]
         row.update(ms=timed(lambda: ops.flash_attention(q, k, v, **kw)),
                    plain_ms=timed(lambda: ref.attention_ref(q, k, v, **kw)),
                    bound_ms=bound(nbytes, flops, peak)[0],
-                   library_ms=timed(sdpa) if sdpa is not None else None)
+                   library_ms=timed(sdpa) if sdpa is not None else None,
+                   plain_tf32=torch.backends.cuda.matmul.allow_tf32)
+        if q.dtype == torch.float32:   # the bound of a body of CUDA-core FMAs
+            row["bound_ms_cuda_cores"] = bound(
+                *kwork.flash_work(q, k, causal=kw["causal"], window=kw["window"]),
+                FP32_FLOPS_PER_S)[0]
     # the train step's backward of K6: the plain attention recomputed and
     # differentiated (FlashAttentionFn.backward), at the train call's inputs
     row, (q, k, v, kw, *_) = cases["train"]

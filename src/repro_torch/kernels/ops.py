@@ -251,12 +251,14 @@ def maxplus_bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # K6: flash attention
 # ======================================================================
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` when TMA can load it as it lies, else a contiguous copy.  A bf16
-    tensor map needs a 16-byte aligned base and 16-byte multiples as the
-    strides of its (b, h, s) dims; a dim of extent 1 is never stepped, so
-    its stride does not matter (the kernel replaces it)."""
+    """``t`` when K6 can load it as it lies, else a contiguous copy.  Both
+    bodies load 16-byte pieces of rows (the bf16 body by TMA, the float32
+    body by cp.async): a 16-byte aligned base and 16-byte multiples as the
+    strides of the (b, h, s) dims; a dim of extent 1 is never stepped, so
+    its stride does not matter (the bf16 body replaces it)."""
+    per_16 = 16 // t.element_size()
     if t.data_ptr() % 16 == 0 and all(
-            st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            st % per_16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -340,8 +342,7 @@ def _flash_leg(q, k, v, causal, window):
         raise ValueError("flash_attention needs a contiguous head dimension")
     if leg == "meta":
         return torch.empty((b, hq, sq, d), dtype=q.dtype, device="meta")
-    if q.dtype == torch.bfloat16:   # the tensor-core body loads its tiles by TMA
-        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+    q, k, v = (_aligned_rows(t) for t in (q, k, v))
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o

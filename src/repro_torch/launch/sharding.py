@@ -98,10 +98,44 @@ def use_mesh(mesh):
         if mesh is None or isinstance(mesh, Mesh):
             yield mesh
         else:
-            with _implicit_replication():
+            with _implicit_replication(), _shard_to_partial_via_replica():
                 yield mesh
     finally:
         _STATE.mesh = prev
+
+
+@contextlib.contextmanager
+def _shard_to_partial_via_replica():
+    """Let DTensor's operator dispatch turn a shard into a partial sum by
+    way of a replica (all-gather, then keep the value on one rank), which
+    DTensor cannot do in one step.  torch 2.11 plans a pointwise operator
+    in one input's layout, so an add of two gradients where each shards
+    what the other sums (deepseek-v3's MLA branch against its residual,
+    train_4k on the (2, 16, 16) mesh) has no plan it can run without it.
+    Restores what it found on exit; an enclosing one stays."""
+    import torch.distributed.tensor._dispatch as dispatch
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+
+    base = dispatch.redistribute_local_tensor
+    if getattr(base, "via_replica", False):
+        yield
+        return
+
+    def redistribute_local_tensor(local, current, target, *args, **kwargs):
+        mid = tuple(Replicate() if c.is_shard() and t.is_partial() else t
+                    for c, t in zip(current.placements, target.placements))
+        if mid != tuple(target.placements):
+            spec = DTensorSpec(target.mesh, mid, tensor_meta=target.tensor_meta)
+            local, current = base(local, current, spec, *args, **kwargs), spec
+        return base(local, current, target, *args, **kwargs)
+
+    redistribute_local_tensor.via_replica = True
+    dispatch.redistribute_local_tensor = redistribute_local_tensor
+    try:
+        yield
+    finally:
+        dispatch.redistribute_local_tensor = base
 
 
 @contextlib.contextmanager
@@ -387,6 +421,42 @@ def merge_dims(t, dim: int) -> torch.Tensor:
     if not isinstance(t, DTensor):
         return t.flatten(dim, dim + 1)
     return _MergeDims.apply(t, dim % t.dim())
+
+
+class _Reshape(torch.autograd.Function):
+    """``t.reshape(shape)`` whose backward lays the gradient out as the
+    result was laid out before viewing it back.  A gradient summed over
+    branches may come back in another layout: sharded over a merged dim by
+    more ranks than the dim's first factor has rows (the MoE's tokens, (B,
+    S) merged, sharded over pod x data where B is one microbatch), which
+    torch 2.11's view backward cannot split.  A partial sum of the result's
+    reads as replicated where the gradient is not one."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        out = t.reshape(shape)
+        ctx.shape, ctx.mesh, ctx.pls = t.shape, out.device_mesh, tuple(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+
+        pls = tuple(Replicate() if isinstance(p, Partial) and not isinstance(q, Partial) else p
+                    for p, q in zip(ctx.pls, g.placements))
+        if tuple(g.placements) != pls:
+            g = g.redistribute(ctx.mesh, pls)
+        return g.reshape(ctx.shape), None
+
+
+def reshape(t, shape) -> torch.Tensor:
+    """``t.reshape(shape)``; on a DTensor its gradient is viewed back from
+    the result's own layout (:class:`_Reshape`)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t.reshape(shape)
+    return _Reshape.apply(t, tuple(shape))
 
 
 def per_shard(fn, t):

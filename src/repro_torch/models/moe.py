@@ -290,7 +290,9 @@ def moe_forward(p, x, cfg, *, mesh=None):
     and ``inference_ep`` is ignored."""
     mesh = sh.lm_mesh(mesh)
     b, s, d = x.shape
-    flat = x.reshape(b * s, d)
+    # its gradient, summed over the dispatch and the shared experts, is laid
+    # out as flat before it is viewed back as (B, S, D)
+    flat = sh.reshape(x, (b * s, d))
     dispatch = cfg.moe_dispatch
     if dispatch not in ("onehot", "gather", "shard_map"):
         raise ValueError(f"unknown moe_dispatch {dispatch!r}")

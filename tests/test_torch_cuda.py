@@ -290,10 +290,11 @@ def test_flash_attention_passes_tma_loadable_views_as_they_lie(monkeypatch):
 
 
 def test_flash_attention_copies_what_tma_cannot_load(monkeypatch):
-    """A bf16 stride that is not a multiple of 16 bytes, or a base that is
-    not 16-byte aligned, is copied to a contiguous tensor in the wrapper
-    (never routed elsewhere); the stride of a dim of extent 1 does not
-    matter; float32 goes to its body uncopied."""
+    """A stride that is not a multiple of 16 bytes, or a base that is not
+    16-byte aligned, is copied to a contiguous tensor in the wrapper (never
+    routed elsewhere), in bf16 (TMA) and in float32 (16-byte cp.async); the
+    stride of a dim of extent 1 does not matter; a float32 view whose rows
+    are 16-byte aligned goes to its body uncopied."""
     lib = _fake_flash(monkeypatch)
     wide = torch.zeros((1, 2, 24, 68), dtype=torch.bfloat16)
     odd_rows = wide[..., :64]                       # row stride 136 bytes
@@ -306,7 +307,10 @@ def test_flash_attention_copies_what_tma_cannot_load(monkeypatch):
     ops.flash_attention(ok, one_head, one_head)
     f32 = torch.zeros((1, 2, 24, 72))[..., :64]
     ops.flash_attention(f32, f32, f32)
-    (c1, c2, c3, c4) = lib.calls
+    f32_odd_rows = torch.zeros((1, 2, 24, 66))[..., :64]           # row stride 264 bytes
+    f32_shifted = torch.zeros(2 * 24 * 64 + 1)[1:].view(1, 2, 24, 64)   # base 4 bytes off
+    ops.flash_attention(f32_odd_rows, f32, f32_shifted)
+    (c1, c2, c3, c4, c5) = lib.calls
     assert c1["ptrs"][0] != odd_rows.data_ptr() and c1["strides"][:3] == (2 * 24 * 64, 24 * 64, 64)
     assert c1["ptrs"][1:] == (ok.data_ptr(), ok.data_ptr())
     assert c2["ptrs"][0] != shifted.data_ptr() and c2["ptrs"][0] % 16 == 0
@@ -314,6 +318,9 @@ def test_flash_attention_copies_what_tma_cannot_load(monkeypatch):
     assert c3["strides"][3:6] == (24 * 64, 3, 64)
     assert c4["ptrs"][0] == f32.data_ptr() and c4["is_bf16"] == 0
     assert c4["strides"][:3] == f32.stride()[:3]
+    assert c5["ptrs"][0] != f32_odd_rows.data_ptr() and c5["ptrs"][1] == f32.data_ptr()
+    assert c5["strides"][:3] == (2 * 24 * 64, 24 * 64, 64) and c5["ptrs"][2] % 16 == 0
+    assert c5["ptrs"][2] != f32_shifted.data_ptr() and c5["is_bf16"] == 0
 
 
 def test_flash_attention_raises_on_a_failed_launch(monkeypatch):
@@ -668,6 +675,57 @@ def test_flash_attention_pipeline_edges_on_the_card(case):
     plain = tref.attention_ref(q, k, v, causal=causal, window=window)
     assert out.shape == (b, hq, sq, d) and torch.isfinite(out).all()
     assert tref.attention_excess(out, plain) <= 1.0
+
+
+#: float32 cases at the edges of the 3xTF32 body's tiles (64 q rows a block,
+#: a ring of two 64-key cp.async stages, 32-column P V passes) and the train
+#: step's call; q, k and v are strided views of packed (b, s, h, d) tensors
+FLASH_F32_EDGE_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, causal, window)
+    "kv_shorter_than_a_stage": (1, 4, 2, 100, 40, 128, True, 0),
+    "ring_wraps": (1, 4, 1, 700, 700, 128, True, 0),
+    "window_narrower_than_a_tile": (1, 4, 2, 300, 300, 128, True, 24),
+    "d96_ring_wraps": (1, 4, 2, 400, 400, 96, True, 0),
+    "d64_ragged_non_causal": (2, 2, 2, 150, 333, 64, False, 0),
+    "sq_ne_skv": (1, 4, 2, 70, 333, 128, True, 0),
+    "batch_strided_kv": (3, 8, 2, 260, 260, 128, True, 0),
+    "train_call": (8, 12, 2, 256, 256, 128, True, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_F32_EDGE_CASES))
+def test_flash_attention_float32_tile_edges_on_the_card(case):
+    dev = _need_cuda()
+    b, hq, hkv, sq, skv, d, causal, window = FLASH_F32_EDGE_CASES[case]
+    gen = torch.Generator(device="cpu").manual_seed(5 * sq + skv + d)
+    q = torch.randn(b, sq, hq, d, generator=gen).to(dev).transpose(1, 2)
+    kv = torch.randn(b, skv, 2 * hkv, d, generator=gen).to(dev)
+    k, v = kv[:, :, :hkv].transpose(1, 2), kv[:, :, hkv:].transpose(1, 2)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    plain = tref.attention_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.float32 and out.shape == (b, hq, sq, d)
+    assert torch.isfinite(out).all()
+    assert tref.attention_excess(out, plain) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_unaligned_float32_rows():
+    """The float32 body loads 16-byte pieces of rows by cp.async; the
+    wrapper copies inputs whose rows are not aligned so, and the result is
+    unchanged."""
+    dev = _need_cuda()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    base = torch.randn(3, 1, 4, 100, 66, generator=gen).to(dev)
+    q, k, v = (base[i, :, :, :, 1:65] for i in range(3))   # rows 4 bytes off
+    out = ops.flash_attention(q, k, v, causal=True)
+    plain = tref.attention_ref(q, k, v, causal=True)
+    assert tref.attention_excess(out, plain) <= 1.0
+    aligned = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(out, aligned)
 
 
 @pytest.mark.cuda

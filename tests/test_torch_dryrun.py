@@ -423,6 +423,82 @@ def test_microbatches_of_fewer_rows_than_batch_ranks():
     assert parts["collectives"]["count_all-gather"] > 0
 
 
+def test_moe_microbatches_of_fewer_rows_than_batch_ranks_on_a_pod_mesh(monkeypatch):
+    """Reduced deepseek-v3 (MoE, ``shard_map`` dispatch) on a fake (2, 2, 2)
+    ("pod", "data", "model") mesh: microbatches of 2 rows on 4 batch ranks,
+    so the MoE's 32 tokens shard over pod x data, more axes than (B, S)
+    can carry (deepseek-v3 train_4k on (2, 16, 16) in small).  The step
+    lowers; the MoE output's local shard is (b_local, S, d_local) of its
+    placements; and the gradient of the MoE's input comes back in the
+    input's own layout, as it must for torch 2.11's view backward."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.models import moe as tmoe
+
+    cfg = reduced(get_arch("deepseek-v3-671b"))
+    cfg = dataclasses.replace(cfg, stacks=tuple((1, specs) for _, specs in cfg.stacks))
+    assert cfg.moe_dispatch == "shard_map"
+    seen, moe_forward = [], tmoe.moe_forward
+
+    def spy(p, x, c, **kw):
+        grads = []
+        x.register_hook(lambda g: grads.append(tuple(g.placements)))
+        y, aux = moe_forward(p, x, c, **kw)
+        seen.append((x, y, grads))
+        return y, aux
+
+    monkeypatch.setattr(tmoe, "moe_forward", spy)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        step, args, notes = dryrun.cell_step(cfg, "train_4k", mesh, accum=2,
+                                             batch_tokens=(4, 16))
+        with tsh.use_mesh(mesh):
+            parts, _ = dryrun.count_step(step, args)
+    finally:
+        dist.destroy_process_group()
+    assert notes == {"grad_accum": 2} and parts["cost"]["flops"] > 0
+    assert len(seen) == 2    # one MoE layer, two microbatches
+    for x, y, grads in seen:
+        assert tuple(y.shape) == (2, 16, cfg.d_model)
+        local = list(y.shape)
+        for i, p in enumerate(y.placements):
+            if isinstance(p, Shard):
+                local[p.dim] //= mesh.size(i)
+        assert tuple(y.to_local().shape) == tuple(local)
+        assert grads == [tuple(x.placements)]
+
+
+def test_a_shard_becomes_a_partial_sum_through_a_replica_under_the_lm_mesh():
+    """DTensor's dispatch cannot redistribute a shard into a partial sum in
+    one step; under ``use_mesh`` it goes through a replica (an all-gather,
+    then the partial's share), and outside it DTensor's own refusal
+    stands."""
+    import torch.distributed.tensor._dispatch as dispatch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("data",))
+        meta = TensorMeta(torch.Size((4, 6)), (6, 1), torch.float32)
+        shard = DTensorSpec(mesh, (Shard(0),), tensor_meta=meta)
+        partial = DTensorSpec(mesh, (Partial(),), tensor_meta=meta)
+        local = torch.empty((2, 6), device="meta")
+        with pytest.raises(RuntimeError, match="not supported"):
+            dispatch.redistribute_local_tensor(local, shard, partial)
+        with tsh.use_mesh(mesh):
+            out = dispatch.redistribute_local_tensor(local, shard, partial)
+        assert out.shape == (4, 6)
+        assert not getattr(dispatch.redistribute_local_tensor, "via_replica", False)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_long_500k_skips_quadratic_attention_and_the_cli_writes_records(monkeypatch, tmp_path):
     monkeypatch.setattr(dryrun, "ART", tmp_path)
     monkeypatch.setattr(dryrun, "get_arch", lambda name: reduced(get_arch(name)))
