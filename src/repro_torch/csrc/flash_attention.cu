@@ -763,25 +763,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A (D, S, H, B) bf16 map with (64, 64, 1, 1) boxes, 128-byte swizzle and
 // zero fill out of bounds.  A dimension of extent 1 takes the packed stride,
 // whatever the caller's (it is never stepped).

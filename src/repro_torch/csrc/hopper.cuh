@@ -1,12 +1,32 @@
 // Hopper primitives for the port's hand-written kernels: mbarriers, TMA
-// tensor loads and wgmma, as inline PTX for sm_90a.  Header only; a source
-// that includes it is rebuilt when it changes (kernels/_build.py hashes the
-// headers a source includes).
+// tensor loads and wgmma, as inline PTX for sm_90a, and the host's tensor
+// map encoder.  Header only; a source that includes it is rebuilt when it
+// changes (kernels/_build.py hashes the headers a source includes).
 #pragma once
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -40,7 +60,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// one (64 columns, 64 rows) box at (d, s, h, b) into shared memory
+// one box of a 4-d map at (d, s, h, b) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int d, int s, int h, int b) {
   asm volatile(

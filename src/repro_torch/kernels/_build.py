@@ -62,6 +62,9 @@ SIGNATURES = {
         "mamba_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # dt, a, s_local, h_init, is_bf16, B, L, D, N, chunk, stream
         "mamba_chunk_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, dt, a, b, c, y, h_final, is_bf16, B, L, D, ld (x and dt's row
+        # stride), N, chunk, stream
+        "mamba_scan_route": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "spike_input": {
         "spike_input": [_P, _P, _P, _P, _P, _I, _P],   # indptr, pre, w, s, out, n, stream

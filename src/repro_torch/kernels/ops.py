@@ -5,7 +5,7 @@ A CUDA tensor goes to the hand-written kernel in ``csrc/`` or the call
 raises: there is no size threshold below which the plain version takes
 over, and no fallback when the library cannot be built or a launch fails.
 Each wrapper adds one to :data:`LAUNCHES` where it launches its kernel.
-Flash attention and the Mamba scan's three wrappers also take ``meta``
+Flash attention and the Mamba scan's four wrappers also take ``meta``
 tensors: they return a ``meta`` output of the kernel's shape and type
 (the dry run, ``launch/dryrun.py``), after the checks the card makes.
 A DTensor raises: the models run each rank's shard through
@@ -41,12 +41,9 @@ LAUNCHES = {
     "mamba_chunk_scan": 0,
     "mamba_chunk_states": 0,
     "mamba_chunk_combine": 0,
+    "mamba_scan_route": 0,
     "spike_input": 0,
 }
-
-#: device operations the chunk combine of :func:`mamba_scan` issued on a
-#: CUDA tensor since the last :func:`reset_launches`: one combine kernel a scan
-COMBINE_LAUNCHES = {"mamba_scan": 0}
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
 #: single-lambda deadlock probe
@@ -80,7 +77,6 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    COMBINE_LAUNCHES["mamba_scan"] = 0
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -564,13 +560,66 @@ def _combine_leg(dt, a, s_local, chunk):
                  int(dt.dtype == torch.bfloat16), bsz, length, d, n, chunk, stream)
     _raise_on(err, "mamba_chunk_combine")
     LAUNCHES["mamba_chunk_combine"] += 1
-    COMBINE_LAUNCHES["mamba_scan"] += 1
     return h_init
 
 
+def mamba_scan_route(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    c: torch.Tensor, *, chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence scan from a zero state, ``(y (B, L, D), h_final
+    (B, D, N))``, by the reference's route (each chunk's states from zero,
+    the chunk combine, the chunk scan from the combined states: see
+    ``ref.mamba_route_ref``) in one launch on the card: a walk over the
+    chunks in order that computes each term's decay once and equals the
+    three launches (:func:`mamba_chunk_states`, :func:`mamba_chunk_combine`,
+    :func:`mamba_chunk_scan`) bit for bit."""
+    return _charged("mamba_scan_route", lambda: work.route_work(x, a, b, chunk=chunk),
+                    lambda: _route_leg(x, dt, a, b, c, chunk))
+
+
+def _tma_rows(*ts: torch.Tensor) -> tuple:
+    """``ts`` (one shape, last dim W) as TMA loads them, and their row
+    stride in elements: each as it lies when its rows and base are 16-byte
+    multiples, else copied into rows padded to the next multiple (the
+    kernel reads no element past W)."""
+    w, size = ts[0].shape[-1], ts[0].element_size()
+    ld = -(-w * size // 16) * 16 // size
+    out = []
+    for t in ts:
+        if ld != w or t.data_ptr() % 16:
+            padded = torch.empty((*t.shape[:-1], ld), dtype=t.dtype, device=t.device)
+            padded[..., :w] = t
+            t = padded
+        out.append(t)
+    return (*out, ld)
+
+
+def _route_leg(x, dt, a, b, c, chunk):
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    leg = _scan_leg(x, dt, a, b, c, None, chunk)
+    if leg == "cpu":
+        return ref.mamba_route_ref(x, dt, a, b, c, chunk=chunk)
+    y = torch.empty_like(x)
+    h_final = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    if y.numel() == 0 or leg == "meta":
+        return y, h_final
+    x, dt, ld = _tma_rows(x, dt)
+    b, c, _ = _tma_rows(b, c)
+    fn = _build.library("mamba_scan").mamba_scan_route
+    with _launch_on(x) as stream:
+        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 y.data_ptr(), h_final.data_ptr(), int(x.dtype == torch.bfloat16), bsz,
+                 length, d, ld, n, chunk, stream)
+    _raise_on(err, "mamba_scan_route")
+    LAUNCHES["mamba_scan_route"] += 1
+    return y, h_final
+
+
 class MambaScanFn(torch.autograd.Function):
-    """:func:`mamba_scan` under autograd: the device's forward (the states
-    pass, the combine and K7 on CUDA), the backward the gradient of the
+    """:func:`mamba_scan` under autograd: the device's forward (the route's
+    kernel, or K7 over one chunk, on CUDA), the backward the gradient of the
     plain route ``ref.mamba_route_ref`` recomputed from x, dt, a, b and c.
     Use :func:`mamba_scan`, which routes here."""
 
@@ -593,12 +642,12 @@ def mamba_scan(
     c: torch.Tensor, *, chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence S6 scan from a zero state, ``(y (B, L, D),
-    h_final (B, D, N))``, in the reference's three steps: each chunk's end
-    state from zero (:func:`mamba_chunk_states`), the chunk combine
-    ``H_init(c) = Decay(c-1) * H_init(c-1) + S_local(c-1)``
-    (:func:`mamba_chunk_combine`), and the chunk scan from ``H_init``.  A
-    sequence of one chunk starts from zero and needs neither of the first
-    two.  Differentiable (:class:`MambaScanFn`)."""
+    h_final (B, D, N))``, by the reference's route: each chunk's end state
+    from zero, the chunk combine ``H_init(c) = Decay(c-1) * H_init(c-1) +
+    S_local(c-1)``, and the chunk scan from ``H_init``, all three in
+    :func:`mamba_scan_route`'s one launch.  A sequence of one chunk is the
+    chunk scan from zero (:func:`mamba_chunk_scan`).  Differentiable
+    (:class:`MambaScanFn`)."""
     if _needs_grad(x, dt, a, b, c):
         return MambaScanFn.apply(x, dt, a, b, c, chunk)
     return _mamba_scan_forward(x, dt, a, b, c, chunk)
@@ -606,10 +655,8 @@ def mamba_scan(
 
 def _mamba_scan_forward(x, dt, a, b, c, chunk):
     bsz, length, d = x.shape
-    if length <= chunk:
-        h_init = torch.zeros((bsz, 1, d, a.shape[1]), dtype=torch.float32, device=x.device)
-    else:
-        s_local = mamba_chunk_states(x, dt, a, b, chunk=chunk)
-        h_init = mamba_chunk_combine(dt, a, s_local, chunk=chunk)
+    if length > chunk:
+        return mamba_scan_route(x, dt, a, b, c, chunk=chunk)
+    h_init = torch.zeros((bsz, 1, d, a.shape[1]), dtype=torch.float32, device=x.device)
     y, h_fin = mamba_chunk_scan(x, dt, a, b, c, h_init, chunk=chunk)
     return y, h_fin[:, -1]

@@ -2,8 +2,8 @@
 does, from its inputs' shapes.
 
 One formula each for flash attention (K6), the chunk scan (K7), its
-states-only pass and the chunk combine.  ``chip_smoke.py`` divides them by
-the card's rates for each kernel's ``bound_ms``; the dry run
+states-only pass, the chunk combine and the scan's route.  ``chip_smoke.py``
+divides them by the card's rates for each kernel's ``bound_ms``; the dry run
 (``launch/dryrun.py``) charges them for each wrapper call, on every
 device, in place of the plain version's operations.  Bytes count each
 input read once and each output written once; a multiply-add is two
@@ -57,3 +57,21 @@ def combine_work(dt, a, s_local) -> tuple[int, int]:
     multiply and add; per (b, t, d) the dt sum's add."""
     nbytes = dt.numel() * dt.element_size() + a.numel() * 4 + 2 * s_local.numel() * 4
     return nbytes, 4 * s_local.numel() + dt.numel()
+
+
+def route_work(x, a, b, *, chunk: int) -> tuple[int, int]:
+    """The scan's route in one walk: x, dt and y; B and C; a; the last
+    state out.  Per (b, t, d, n) term K7's seven operations, and in the
+    chunks between the first and the last two more for the states from zero
+    (decay*h and the add: in the first chunk those are the states from
+    H(0) = 0, the last needs none); per (b, t, d) dt*x, and the dt sum's
+    add in every chunk but the last; per (b, d, n) at each of those chunks'
+    ends the combine's four (dt sum*a, exp, decay*H, the add)."""
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    nc = -(-length // chunk)
+    nbytes = (3 * x.numel() + 2 * b.numel()) * x.element_size() + a.numel() * 4 \
+        + bsz * d * n * 4
+    between = max(nc - 2, 0) * chunk
+    return nbytes, (7 * length + 2 * between) * bsz * d * n + bsz * length * d \
+        + (nc - 1) * (chunk * bsz * d + 4 * bsz * d * n)

@@ -67,6 +67,7 @@ def _kernel_calls(dist, lams, csr, a):
         lambda: ops.mamba_chunk_states(*scan[:4], chunk=16),
         lambda: ops.mamba_chunk_combine(scan[1], scan[2], scan[5], chunk=16),
         lambda: ops.mamba_scan(*scan[:5], chunk=16),
+        lambda: ops.mamba_scan_route(*scan[:5], chunk=16),
         lambda: ops.spike_input(a[0, 0], tlif.synapse_csr(
             np.array([0, 1]), np.array([1, 2]), np.ones(2), 4, a.device)),
     )
@@ -216,6 +217,7 @@ def _wrapper_calls():
         "mamba_chunk_states": (scan[0], lambda: ops.mamba_chunk_states(*scan[:4], chunk=16)),
         "mamba_chunk_combine": (scan[1], lambda: ops.mamba_chunk_combine(
             scan[1], scan[2], scan[5], chunk=16)),
+        "mamba_scan_route": (scan[0], lambda: ops.mamba_scan_route(*scan[:5], chunk=16)),
         "spike_input": (syn.weight, lambda: ops.spike_input(torch.ones(2), syn)),
     }
 
@@ -238,26 +240,23 @@ def test_every_launch_runs_under_its_operands_device(monkeypatch):
 
 
 def test_scan_and_matvec_routes_reach_their_c_entries(monkeypatch):
-    """``mamba_scan`` over more than one chunk: the states-only launch (no
-    y, no c, no h0), one combine launch on its output, then the full launch
-    from the combine's output; over one chunk only the full launch, from
-    zeros.
+    """``mamba_scan`` over more than one chunk: one launch of the route's C
+    entry on x, dt, a, b and c as they lie (rows of 16-byte multiples), y
+    and the last state (B, D, N) out, x's rows as their stride; over one
+    chunk only the full launch of K7, from zeros.
     ``maxplus_matmul`` at N = 1 is K2's C entry with G = 1 and N = 1, the
     matvec route inside it."""
     lib = _fake_lib(monkeypatch)
     x, dt, a, b, c, _ = _scan_args(2, 40, 16, 8, torch.bfloat16, "cpu", chunk=16)
-    combine_before = ops.COMBINE_LAUNCHES["mamba_scan"]
-    ops.mamba_scan(x, dt, a, b, c, chunk=16)
-    assert [entry for entry, _, _ in lib.calls] == [
-        "mamba_chunk_scan", "mamba_chunk_combine", "mamba_chunk_scan"]
-    (_, states, _), (_, comb, _), (_, full, _) = lib.calls
-    assert states[:3] == (x.data_ptr(), dt.data_ptr(), a.data_ptr())
-    assert states[4:7] == (None, None, None) and states[7] == comb[2]
-    assert states[8:14] == (1, 2, 40, 16, 8, 16)
-    assert comb[:2] == (dt.data_ptr(), a.data_ptr()) and comb[4:10] == (1, 2, 40, 16, 8, 16)
-    assert full[4] == c.data_ptr() and full[5] == comb[3] and full[6] is not None
-    assert full[8:14] == (1, 2, 40, 16, 8, 16)
-    assert ops.COMBINE_LAUNCHES["mamba_scan"] == combine_before + 1
+    before = dict(ops.LAUNCHES)
+    y, h = ops.mamba_scan(x, dt, a, b, c, chunk=16)
+    (entry, route, _), = lib.calls
+    assert entry == "mamba_scan_route"
+    assert route[:5] == tuple(t.data_ptr() for t in (x, dt, a, b, c))
+    assert route[5:7] == (y.data_ptr(), h.data_ptr()) and h.shape == (2, 16, 8)
+    assert route[7:14] == (1, 2, 40, 16, 16, 8, 16)
+    assert {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]} \
+        == {"mamba_scan_route": 1}
     lib.calls.clear()
     ops.mamba_scan(*(t[:, :16].contiguous() for t in (x, dt)), a,
                    *(t[:, :16].contiguous() for t in (b, c)), chunk=16)
@@ -825,13 +824,13 @@ def test_mamba_chunk_scan_matches_its_plain_version_on_the_card(case, dtype):
     assert tref.scan_excess(y, plain_y, chunk) <= 1.0
     rms = plain_h.square().mean(dim=-1, keepdim=True).sqrt()
     assert ((h - plain_h).abs() <= 2.0**-20 * plain_h.abs() + 2.0**-14 * rms).all()
-    # the full scan: the states-only launch, the combine and the full launch,
-    # against the host's and against the sequential scan
-    counts = {k: ops.LAUNCHES[k] for k in ("mamba_chunk_states", "mamba_chunk_combine")}
+    # the full scan (the route's one launch over more than one chunk, K7
+    # from zeros over one), against the host's and the sequential scan
+    counts = dict(ops.LAUNCHES)
     full_y, full_h = ops.mamba_scan(*args[:5], chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["mamba_chunk_scan"] == before + 2
-    assert all(ops.LAUNCHES[k] == v + 1 for k, v in counts.items())
+    assert {k: v - counts[k] for k, v in ops.LAUNCHES.items() if v != counts[k]} == (
+        {"mamba_scan_route": 1} if length > chunk else {"mamba_chunk_scan": 1})
     host_y, _ = ops.mamba_scan(*(t.cpu() for t in args[:5]), chunk=chunk)
     assert tref.scan_excess(full_y.cpu(), host_y, chunk) <= 1.0 and full_h.shape == (b, d, n)
     seq_y, seq_h = tref.mamba_scan_ref(*args[:5])
@@ -864,6 +863,54 @@ def test_mamba_states_and_combine_on_the_card(case, dtype):
     assert ops.LAUNCHES["mamba_chunk_combine"] == before + 1
     assert torch.equal(h_init[:, 0], torch.zeros_like(h_init[:, 0]))
     assert tref.state_excess(h_init, tref.mamba_combine_ref(dt, a, states, chunk=chunk)) <= 1.0
+
+
+#: the route's own cases beside SCAN_CASES: 32 chunks, two batch rows at
+#: N = 8 with a ragged last chunk, and chunks that start inside its tiles
+ROUTE_CASES = {**SCAN_CASES, "chunks_32": (1, 4096, 256, 16, 128),
+               "two_rows_n8": (2, 300, 96, 8, 32), "chunk_24": (1, 150, 64, 16, 24)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_mamba_scan_route_equals_the_three_launches_on_the_card(case, dtype):
+    """The route's one launch gives the three launches' y and last state
+    (the states pass, the combine, K7 from the combined states) bit for
+    bit, and lies within SCAN_TOL of the plain route and of the sequential
+    scan."""
+    dev = _need_cuda()
+    b, length, d, n, chunk = ROUTE_CASES[case]
+    x, dt, a, bm, cm, _ = _scan_args(b, length, d, n, dtype, dev, chunk, seed=3 * length + d)
+    before = ops.LAUNCHES["mamba_scan_route"]
+    y, h = ops.mamba_scan_route(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan_route"] == before + 1
+    states = ops.mamba_chunk_states(x, dt, a, bm, chunk=chunk)
+    y3, h3 = ops.mamba_chunk_scan(x, dt, a, bm, cm,
+                                  ops.mamba_chunk_combine(dt, a, states, chunk=chunk), chunk=chunk)
+    assert y.dtype == dtype and h.shape == (b, d, n) and torch.isfinite(y).all()
+    assert torch.equal(y, y3) and torch.equal(h, h3[:, -1])
+    plain_y, plain_h = tref.mamba_route_ref(x, dt, a, bm, cm, chunk=chunk)
+    assert tref.scan_excess(y, plain_y, chunk) <= 1.0 and tref.state_excess(h, plain_h) <= 1.0
+    seq_y, seq_h = tref.mamba_scan_ref(x, dt, a, bm, cm)
+    assert tref.scan_excess(y, seq_y, chunk) <= 1.0 and tref.state_excess(h, seq_h) <= 1.0
+
+
+def test_route_copies_rows_tma_cannot_load(monkeypatch):
+    """x and dt rows that are no 16-byte multiple (D = 20 in bf16) reach the
+    route's C entry as padded copies (row stride 24, the first D columns
+    equal); B and C, and rows that TMA loads, go as they lie."""
+    lib = _fake_lib(monkeypatch)
+    x, dt, a, b, c, _ = _scan_args(1, 40, 20, 8, torch.bfloat16, "cpu", chunk=16)
+    ops.mamba_scan_route(x, dt, a, b, c, chunk=16)
+    (entry, args, _), = lib.calls
+    assert entry == "mamba_scan_route" and args[10:12] == (20, 24)
+    assert args[0] != x.data_ptr() and args[1] != dt.data_ptr()
+    assert args[2:5] == (a.data_ptr(), b.data_ptr(), c.data_ptr())
+    xs, ld = ops._tma_rows(x)
+    assert ld == 24 and xs.shape == (1, 40, 24) and torch.equal(xs[..., :20], x)
+    assert ops._tma_rows(x[..., :16].contiguous())[0].shape == (1, 40, 16)
 
 
 # ======================================================================
@@ -931,8 +978,7 @@ def test_a_card_call_that_needs_a_gradient_goes_through_the_functions(monkeypatc
     assert isinstance(o.grad_fn, ops.FlashAttentionFn._backward_cls)
     assert isinstance(y.grad_fn, ops.MambaScanFn._backward_cls)
     launched = [entry for entry, _, _ in lib.calls]
-    assert launched == ["flash_attention", "mamba_chunk_scan", "mamba_chunk_combine",
-                        "mamba_chunk_scan"]
+    assert launched == ["flash_attention", "mamba_scan_route"]
     loss.backward()
     q, k, v, x, dt, a_log, b, c = (t.detach().requires_grad_() for t in leaves)
     y_p, h_p = tref.mamba_route_ref(x, dt, -torch.exp(a_log), b, c, chunk=32)
@@ -950,19 +996,17 @@ def test_a_card_call_that_needs_a_gradient_goes_through_the_functions(monkeypatc
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_attention_and_scan_gradients_on_the_card(dtype):
-    """K6 and the scan route (states pass, combine, K7) in the forward on
-    the card, the plain recompute in the backward: every input's gradient
-    within ``ref.grad_excess`` 1 of the host's."""
+    """K6 and the scan route (its one kernel) in the forward on the card,
+    the plain recompute in the backward: every input's gradient within
+    ``ref.grad_excess`` 1 of the host's."""
     dev = _need_cuda()
     card, weights = _attention_and_scan_inputs(dev, dtype, 1)
     host = [t.detach().cpu().requires_grad_() for t in card]
     before = dict(ops.LAUNCHES)
     _attention_and_scan_loss(card, weights)[0].backward()
     torch.cuda.synchronize()
-    assert {k: ops.LAUNCHES[k] - before[k] for k in (
-        "flash_attention", "mamba_chunk_states", "mamba_chunk_combine", "mamba_chunk_scan")} \
-        == {"flash_attention": 1, "mamba_chunk_states": 1, "mamba_chunk_combine": 1,
-            "mamba_chunk_scan": 1}
+    assert {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]} \
+        == {"flash_attention": 1, "mamba_scan_route": 1}
     _attention_and_scan_loss(host, [w.cpu() for w in weights])[0].backward()
     for c, h in zip(card, host):
         assert c.grad is not None and c.grad.dtype == h.grad.dtype

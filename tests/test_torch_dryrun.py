@@ -195,9 +195,9 @@ def test_counting_mode_collectives_by_kind_once_each(fake_world):
 
 
 def test_counting_mode_charges_the_kernels_work():
-    """K6 4 D flops a kept pair and query head; K7's route its three
-    launches' work; the plain versions' operations inside the wrappers are
-    not counted, on meta or on the CPU."""
+    """K6 4 D flops a kept pair and query head; K7's route the work of its
+    one walk; the plain versions' operations inside the wrappers are not
+    counted, on meta or on the CPU."""
     g = torch.Generator().manual_seed(0)
     b, hq, hkv, s, d = 2, 4, 2, 40, 64
     q_cpu = torch.randn((b, hq, s, d), generator=g)
@@ -217,17 +217,18 @@ def test_counting_mode_charges_the_kernels_work():
     x, dt = (torch.randn((bsz, length, dm), generator=g) for _ in range(2))
     a = -torch.rand((dm, n), generator=g)
     bb, cc = (torch.randn((bsz, length, n), generator=g) for _ in range(2))
-    nc = -(-length // chunk)
     terms = bsz * length * dm * n
-    want = (5 * terms + bsz * length * dm) + (4 * bsz * nc * dm * n + bsz * length * dm) \
-        + (7 * terms + bsz * length * dm)
+    # three chunks (32, 32 and 6 steps): seven a term, two more a term of the
+    # middle chunk, dt*x a step and channel, the first two chunks' dt sums
+    # and their ends' four a state
+    want = 7 * terms + 2 * bsz * 32 * dm * n + bsz * length * dm + 2 * bsz * 32 * dm \
+        + 2 * 4 * bsz * dm * n
     for dev in ("meta", "cpu"):
         args = [t.to(dev) for t in (x, dt, a, bb, cc)]
         with dryrun.CountingMode() as mode:
             ops.mamba_scan(*args, chunk=chunk)
         assert mode.flops == want
-        assert mode.charges == {"mamba_chunk_states": 1, "mamba_chunk_combine": 1,
-                                "mamba_chunk_scan": 1}
+        assert mode.charges == {"mamba_scan_route": 1}
 
 
 # ----------------------------------------------------------------------
@@ -321,9 +322,8 @@ def test_step_counts_the_same_on_meta_and_on_cpu(world_of_one, cell):
         tsh.full(t).nbytes for t in tree_leaves(args) if isinstance(t, torch.Tensor))
     if cell == "qwen2_train_remat":       # each layer's forward, and again in remat's recompute
         assert rec["charges"] == {"flash_attention": 2 * cfg.n_layers}
-    if cell == "jamba_prefill":           # two chunks a Mamba layer: all three launches
-        assert set(rec["charges"]) == {"flash_attention", "mamba_chunk_states",
-                                       "mamba_chunk_combine", "mamba_chunk_scan"}
+    if cell == "jamba_prefill":           # two chunks a Mamba layer: the route's one launch
+        assert set(rec["charges"]) == {"flash_attention", "mamba_scan_route"}
     if cell == "deepseek_decode":
         assert rec["cache_len"] == bt[1] - 1
 
@@ -530,9 +530,34 @@ def test_refuses_beside_a_process_group_and_destroys_its_own_on_error(world_of_o
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
 
 
+def test_route_work_counts_by_hand():
+    """The route's bytes and operations at jamba's 32k call and at a small
+    ragged one, counted by hand: x, dt and y, B and C, a and the last
+    state; 7 operations a term, 9 in the chunks between the first and the
+    last, dt*x a step, the dt sums and the combine's four a state at every
+    chunk's end but the last's."""
+    x = torch.empty((1, 32768, 8192), dtype=torch.bfloat16, device="meta")
+    a = torch.empty((8192, 16), device="meta")
+    b = torch.empty((1, 32768, 16), dtype=torch.bfloat16, device="meta")
+    nbytes, flops = work.route_work(x, a, b, chunk=128)
+    assert nbytes == 3 * 32768 * 8192 * 2 + 2 * 32768 * 16 * 2 + 8192 * 16 * 4 + 8192 * 16 * 4
+    assert flops == (7 * 256 + 2 * 254) * 128 * 8192 * 16 + 32768 * 8192 \
+        + 255 * (128 * 8192 + 4 * 8192 * 16)
+    # two rows, 70 steps at chunk 32: chunks of 32, 32 and 6 steps, float32
+    x, b = torch.empty((2, 70, 8)), torch.empty((2, 70, 16))
+    nbytes, flops = work.route_work(x, torch.empty((8, 16)), b, chunk=32)
+    assert nbytes == (3 * 2 * 70 * 8 + 2 * 2 * 70 * 16) * 4 + 8 * 16 * 4 + 2 * 8 * 16 * 4
+    assert flops == 7 * 2 * 70 * 8 * 16 + 2 * 2 * 32 * 8 * 16 + 2 * 70 * 8 \
+        + 2 * (2 * 32 * 8 + 4 * 2 * 8 * 16)
+    # one chunk: K7's work from zero states, without the states in
+    x = torch.empty((1, 20, 8))
+    assert work.route_work(x, torch.empty((8, 16)), torch.empty((1, 20, 16)), chunk=32)[1] \
+        == 7 * 20 * 8 * 16 + 20 * 8
+
+
 def test_work_formulas_are_the_ones_chip_smoke_uses():
     text = (ROOT / "chip_smoke.py").read_text()
-    for name in ("flash_work", "scan_work", "states_work", "combine_work"):
+    for name in ("flash_work", "scan_work", "states_work", "combine_work", "route_work"):
         assert f"work.{name}(" in text, name
     assert "def attn_pairs" not in text
     # the kept pairs of a causal window, counted by hand

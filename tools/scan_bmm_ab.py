@@ -15,6 +15,17 @@ against the plain route); the combine against its plain loop; and the
 whole scan by the old route (K7, the plain combine, K7) against the new
 one (states, combine, K7).
 
+With ``--route`` only the scan's route runs, on the same inputs: the
+three launches it replaced (the package's states pass, combine and K7)
+against the one walk (``mamba_scan_route``) of each variant in
+``ROUTE_VARIANTS`` (named edits of the walk's thread layout, tile and ring
+constants), in turns; each variant's y and last state must equal the
+three launches' bit for bit.  Each variant is also compiled to a cubin
+with its cold paths cut (``ROUTE_PROBE``) and ``cuobjdump -sass`` counts the
+instructions of the innermost loop that holds MUFU.EX2 per MUFU.EX2, one
+a term: the route's instructions a term beside K7's and its states
+pass's (the three launches' sum).
+
 K2 at the dense path's (64, 192, 192)^2 and K4's (150, 150) x (150, 1):
 old and new in each variant (``K2_VARIANTS``), each bit-identical to the
 plain version.  spike_input at HeartClass's synapses against its plain
@@ -23,6 +34,7 @@ version on the card.
 Run from the repository root on a machine with the card:
 
     python3 tools/scan_bmm_ab.py --k7 base,ex2,noexp --k2 base,m8n8
+    python3 tools/scan_bmm_ab.py --route base,g2,g8,rt32
 
 One JSON line per measurement, each with the card's name and power limit.
 It exits non-zero if a kernel does not build or differs from its plain
@@ -36,6 +48,7 @@ import ctypes
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +84,42 @@ K7_VARIANTS = {
     "noexp": [("const float decay = expf(__fmul_rn(dtt, av[n]));",
                "const float decay = __fmul_rn(dtt, av[n]);")],
 }
+#: name -> (old, new) replacements in csrc/mamba_scan.cu: the route's layout
+#: (states a thread, so warps a block), steps a tile and ring stages; a
+#: variant "a+b" applies both; "diag_" variants give wrong results and are
+#: only timed
+ROUTE_VARIANTS = {
+    "base": [],
+    "g8": [("constexpr int ROUTE_G = 4;", "constexpr int ROUTE_G = 8;")],
+    # 2 states a thread: 8 warps a block, so 16 converted tiles kept
+    "g2": [("constexpr int ROUTE_G = 4;", "constexpr int ROUTE_G = 2;"),
+           ("constexpr int NS = 8;", "constexpr int NS = 16;")],
+    **{f"rt{t}": [("constexpr int RT = 16;", f"constexpr int RT = {t};")] for t in (8, 32)},
+    "rs2": [("constexpr int RS = 4;", "constexpr int RS = 2;")],
+    # the decays free to sink beside their uses
+    "sink": [("        if (L < 0) break;\n", "")],
+    # steps whose decays are computed ahead of their recurrences
+    **{f"sub{n}": [("constexpr int SUB = RT < 16 ? RT : 16;", f"constexpr int SUB = {n};")]
+       for n in (4, 8)},
+    # no exponential: what the rest of a term costs
+    "diag_noexp": [("decay[r][g] = expf(__fmul_rn(q.x, av[g]));",
+                    "decay[r][g] = __fmul_rn(q.x, av[g]);")],
+    # no y: no products, no partial sums passed on, no stores
+    "diag_noy": [("          for (int g = 0; g < G; ++g) acc[r] = __fadd_rn(acc[r], pv[g]);",
+                  "          for (int g = 0; g < G; ++g) {}")],
+}
+
+
+#: the edits that keep only the route's hot path, for counting its SASS (never
+#: run): every tile whole and inside the sequence, no chunk starting
+ROUTE_PROBE = [("      if (aligned && (tile + 1) * RT <= L)", "      if (true)"),
+               ("      if (tile * RT == next_start) start_chunk();",
+                "      if (false) start_chunk();")]
+#: the kernels whose SASS is counted: (label, substrings of the mangled name)
+SASS_KERNELS = (("k7_full", ("mamba_chunk_scan_kernelILi16E13__nv_bfloat16Lb1E",)),
+                ("k7_states", ("mamba_chunk_scan_kernelILi16E13__nv_bfloat16Lb0E",)),
+                ("route", ("mamba_scan_route_kernelILi16E", "13__nv_bfloat16")))
+
 #: name -> (old, new) replacements in csrc/maxplus_matmul.cu
 K2_VARIANTS = {
     "base": [],
@@ -101,6 +150,10 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"scan_bmm_ab: FAILED: {msg}")
 
 
+def route_edits(name: str) -> list:
+    return [e for part in name.split("+") for e in ROUTE_VARIANTS[part]]
+
+
 def _variant(source: str, edits) -> str:
     for old, new in edits:
         if old not in source:
@@ -109,35 +162,51 @@ def _variant(source: str, edits) -> str:
     return source
 
 
-def build(k7: list[str], k2: list[str]) -> dict[str, ctypes.CDLL]:
+def build(k7: list[str], k2: list[str], route: list[str] = ()) -> dict[str, ctypes.CDLL]:
     """Libraries ``scan_old``, ``bmm_old``, ``spike_base`` and
-    ``<kernel>_<variant>``, built in parallel."""
+    ``<kernel>_<variant>``, or with ``route`` only ``route_<variant>``, built
+    in parallel; each route variant's probe is compiled to a cubin beside
+    its library (``<OUT>/route_<variant>/probe.cubin``)."""
     src = {stem: (_build.CSRC / f"{stem}.cu").read_text()
            for stem in ("mamba_scan", "maxplus_matmul", "spike_input")}
-    jobs = {"scan_old": (OLD / "mamba_scan.cu").read_text(),
-            "bmm_old": (OLD / "maxplus_matmul.cu").read_text(),
-            **{f"scan_{n}": _variant(src["mamba_scan"], K7_VARIANTS[n]) for n in k7},
-            **{f"bmm_{n}": _variant(src["maxplus_matmul"], K2_VARIANTS[n]) for n in k2},
-            "spike_base": src["spike_input"]}
+    if route:
+        jobs = {f"route_{n}": _variant(src["mamba_scan"], route_edits(n)) for n in route}
+    else:
+        jobs = {"scan_old": (OLD / "mamba_scan.cu").read_text(),
+                "bmm_old": (OLD / "maxplus_matmul.cu").read_text(),
+                **{f"scan_{n}": _variant(src["mamba_scan"], K7_VARIANTS[n]) for n in k7},
+                **{f"bmm_{n}": _variant(src["maxplus_matmul"], K2_VARIANTS[n]) for n in k2},
+                "spike_base": src["spike_input"]}
     procs = {}
+    cubin_flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     for name, text in jobs.items():
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "k.cu").write_text(text)
+        for header in _build._headers(_build.CSRC / "mamba_scan.cu"):
+            (d / header.name).write_text(header.read_text())
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / "lib.so"),
                str(d / "k.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
+        if name.startswith("route_"):
+            (d / "probe.cu").write_text(_variant(text, ROUTE_PROBE))
+            procs[f"{name}/probe"] = subprocess.Popen(
+                [_build.nvcc_path(), *cubin_flags, "-cubin", "-o", str(d / "probe.cubin"),
+                 str(d / "probe.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"{name} does not build:\n{out}")
+        if name.endswith("/probe"):
+            continue
         emit({"build": name, "ptxas": [ln.strip() for ln in out.splitlines()
                                        if "registers" in ln or "spill" in ln or "Compiling" in ln]})
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         kind = name.split("_")[0]
-        stem = {"scan": "mamba_scan", "bmm": "maxplus_matmul", "spike": "spike_input"}[kind]
+        stem = {"scan": "mamba_scan", "route": "mamba_scan", "bmm": "maxplus_matmul",
+                "spike": "spike_input"}[kind]
         for fn, argtypes in _build.SIGNATURES[stem].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
@@ -253,6 +322,95 @@ def k7(libs, variants, smi, seq):
     emit(combine)
 
 
+# ------------------------------------------------------------- the route
+def route_call(lib, x, dt, a, b, c, chunk=128):
+    """One launch of a library's route: ``(y, h_final)``."""
+    bsz, length, d = x.shape
+    n = a.shape[1]
+    y = torch.empty_like(x)
+    h = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    err = lib.mamba_scan_route(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                               c.data_ptr(), y.data_ptr(), h.data_ptr(),
+                               int(x.dtype == torch.bfloat16), bsz, length, d, d, n, chunk,
+                               stream())
+    check(err == 0, f"route launch failed with cudaError_t {err}")
+    return y, h
+
+
+def sass_per_term(cubin: pathlib.Path) -> dict:
+    """Per kernel of ``SASS_KERNELS`` in ``cubin``: the instructions (NOPs
+    left out) of the innermost loop that holds MUFU.EX2, the MUFU.EX2 among
+    them (one a term), and their quotient."""
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name is not None and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for label, parts in SASS_KERNELS:
+        found = [f for f in funcs if all(p in f for p in parts)]
+        if len(found) != 1:
+            out[label] = {"error": f"{len(found)} functions match {parts}"}
+            continue
+        ins = funcs[found[0]]
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr
+                        and not o.split()[0].startswith("NOP")]
+                mufu = sum("MUFU.EX2" in o for o in body)
+                if mufu:
+                    loops.append((len(body), mufu))
+        if not loops:
+            out[label] = {"error": "no loop holds MUFU.EX2"}
+            continue
+        n_ins, mufu = min(loops)
+        out[label] = {"loop_instructions": n_ins, "mufu_ex2": mufu,
+                      "instructions_a_term": n_ins / mufu}
+    return out
+
+
+def route_ab(libs, variants, smi, seq):
+    x, dt, a, b, c, chunk = scan_inputs(seq)
+    base = libs["route_base"]
+
+    def three():
+        s = scan_call(base, x, dt, a, b, None, None, y=False, chunk=chunk)[1]
+        y, h = scan_call(base, x, dt, a, b, c, combine_call(base, dt, a, s, chunk), chunk=chunk)
+        return y, h[:, -1]
+
+    y3, h3 = three()
+    plain_y, plain_h = ref.mamba_route_ref(x, dt, a, b, c, chunk=chunk)
+    row = {"kernel": "mamba_scan_route", "shape": [*x.shape, a.shape[1]], "chunk": chunk,
+           "terms": x.numel() * a.shape[1], "nvidia_smi": smi,
+           "three_launch_y_tol_ratio": ref.scan_excess(y3, plain_y, chunk),
+           "three_launch_state_tol_ratio": ref.state_excess(h3, plain_h)}
+    fns = {"three_launches": three}
+    for v in variants:
+        lib = libs[f"route_{v}"]
+        y, h = route_call(lib, x, dt, a, b, c, chunk)
+        row[f"{v}_sass"] = sass_per_term(OUT / f"route_{v}" / "probe.cubin")
+        fns[v] = lambda lib=lib: route_call(lib, x, dt, a, b, c, chunk)
+        if "diag_" in v:
+            continue
+        row[f"{v}_equals_three_launches"] = bool(torch.equal(y, y3) and torch.equal(h, h3))
+        row[f"{v}_route_y_tol_ratio"] = ref.scan_excess(y, plain_y, chunk)
+        row[f"{v}_route_state_tol_ratio"] = ref.state_excess(h, plain_h)
+        del y, h
+    del plain_y, plain_h
+    row["ms_in_turns"] = in_turns(fns)
+    emit(row)
+    check(all(row[f"{v}_equals_three_launches"] for v in variants if "diag_" not in v),
+          "a route variant differs from the three launches")
+
+
 # ---------------------------------------------------------------------- K2
 def bmm_call(lib, a, b):
     g, m, k = a.shape
@@ -317,18 +475,24 @@ def main(argv: list[str]) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7", default="base", help="comma-separated K7_VARIANTS")
     ap.add_argument("--k2", default="base", help="comma-separated K2_VARIANTS")
+    ap.add_argument("--route", default="",
+                    help="comma-separated ROUTE_VARIANTS: run the route's section alone")
     ap.add_argument("--seq", type=int, default=32768, help="K7's tokens (jamba's prefill_32k)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     # base first: the other variants are held against it
-    k7_v, k2_v = (["base"] + [v for v in a.split(",") if v != "base"] for a in (args.k7, args.k2))
+    k7_v, k2_v, route_v = (["base"] + [v for v in a.split(",") if v != "base"]
+                           for a in (args.k7, args.k2, args.route))
     t0 = time.perf_counter()
-    libs = build(k7_v, k2_v)
+    libs = build(k7_v, k2_v, route_v if args.route else ())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     emit({"phase": "build", "s": time.perf_counter() - t0, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi})
+    if args.route:
+        route_ab(libs, route_v, smi, args.seq)
+        return
     k2(libs, k2_v, smi)
     spike(libs, smi)
     k7(libs, k7_v, smi, args.seq)
