@@ -79,9 +79,13 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               branch; each model is freed before the next
 12. snn_crossbar the SNN execution path on HeartClass (24,732 neurons, 2.4M
               synapses): (a) simulate_spikes on the card, 256 steps, twice,
-              and on the host with the same draws: every neuron's count the
-              same in all three (the synaptic sum, spike_input, adds in a
-              fixed order); (b) the example's path over every cluster of
+              one lif_record launch each and no other, and on the host with
+              the same draws: every neuron's count the same in all three (the
+              synaptic sum adds in a fixed order); then, off the path, the
+              route before lif_record (the per-step eager loop around
+              spike_input) on the same draws, equal to the host's counts, v
+              and refr, its wall and each step's share of synapses whose
+              source fired printed; (b) the example's path over every cluster of
               the admission phase's clustering: one 128x128 crossbar block
               per cluster, 8 samples of rate-0.15 input spikes, 5 steps with
               spikes fed back, each step one stacked K5 launch over all the
@@ -227,7 +231,12 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               inputs, off every path, the states pass equal to the plain
               states and the full launch's, the combine within the state's
               limit, K7 from the combined (nonzero) chunk states within
-              SCAN_TOL; spike_input bit-identical to the host's; K1, K7 and
+              SCAN_TOL; lif_record's counts, last v and refr bit-identical to
+              the host's, beside its barrier floor (its grid meeting once a
+              step, doing nothing), the launch floor (an empty launch) and the
+              per-step loop it replaced; spike_input, off every path, on the
+              fired flags of recorded step SI_STEP, bit-identical to the
+              host's; K1, K7 and
               the route, launched on
               several paths, also timed at each path's largest call; K1 and
               K5 also checked and timed at the first call of every distinct
@@ -247,6 +256,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -296,6 +306,8 @@ PROFILED_DECODE_STEPS = 4
 #: the SNN execution path: the largest Table-1 app and the example's inputs
 SNN_APP = "HeartClass"
 SNN_STEPS = 256              # simulate_spikes' default
+#: the recorded step whose fired flags spike_input is checked and timed on
+SI_STEP = SNN_STEPS // 2
 CROSSBAR_SAMPLES, CROSSBAR_RATE, CROSSBAR_STEPS = 8, 0.15, 5
 #: clusters the example's own 2-D loop (one G = 1 call a step) runs over
 CROSSBAR_EXAMPLE_CLUSTERS = 4
@@ -323,10 +335,11 @@ XLSTM_PROFILED_TOKENS = 512
 #: kernels launched on more than one path at different shapes: each is also
 #: timed at every path's largest call (the rule-2 order weighs launches by it)
 BY_PATH = ("relax_round", "relax_round_witness", "mamba_chunk_scan", "mamba_scan_route")
-#: kernels off every path since the scan's route became one walk: checked and
-#: timed as the route's yardstick on its largest call's inputs, launched on
-#: no path
-OFF_PATH = ("mamba_chunk_states", "mamba_chunk_combine")
+#: kernels off every path: the scan's states pass and combine since its route
+#: became one walk (checked and timed as the route's yardstick on its largest
+#: call's inputs), spike_input since the recording became one launch
+#: (checked and timed on the fired flags of recorded step SI_STEP)
+OFF_PATH = ("mamba_chunk_states", "mamba_chunk_combine", "spike_input")
 #: kernels also checked and timed at the first call of every distinct shape
 #: of each path
 BY_SHAPE = ("relax_round", "relax_round_witness", "lif_crossbar_step", "maxplus_bmm")
@@ -487,6 +500,18 @@ def crossbar_blocks(cl, size: int = 128):
     blocks = np.zeros((k, size, size), dtype=np.float32)
     np.add.at(blocks, (syn_cluster, row, col[work.post]), work.weight.astype(np.float32))
     return blocks, inputs, members
+
+
+def recorded_spikes(csr, is_input, draws, params, step: int):
+    """The fired flags (float32 0/1) of step ``step`` of a recording: the
+    state after ``step`` steps of ``ops.lif_record``, then the step's rule."""
+    import torch
+    from repro_torch.kernels import ops
+
+    _, v, refr = ops.lif_record(csr, is_input, draws[:step], params)
+    fired = torch.where(is_input, draws[step] < params.input_rate,
+                        (v >= params.v_threshold) & (refr <= 0))
+    return fired.float()
 
 
 def zipf_stream(names, n_events, seed=1):
@@ -788,6 +813,9 @@ def main() -> None:
         "mamba_scan_route": (("B", "L", "D", "N"),
                              lambda x, dt, a, b, c, **kw: (*x.shape, a.shape[1])),
         "spike_input": (("n", "E"), lambda s, csr: (s.shape[0], int(csr.pre.numel()))),
+        "lif_record": (("n", "E", "steps"),
+                       lambda csr, is_input, draws, params: (draws.shape[1], int(csr.pre.numel()),
+                                                             draws.shape[0])),
     }
 
     def work(name, shape):    # E*K terms for K1, the product of the dims otherwise
@@ -809,7 +837,8 @@ def main() -> None:
         orig = getattr(ops, name)
 
         def call(*args, **kwargs):
-            if where["path"] is not None and args[0].is_cuda:
+            if where["path"] is not None and next(
+                    a for a in args if isinstance(a, torch.Tensor)).is_cuda:
                 shape = tuple(int(d) for d in shape_of[name][1](*args, **kwargs))
                 seen[name].setdefault(where["path"], collections.Counter())[shape] += 1
                 kept = keep_if_larger(largest, name, name, shape, args, kwargs)
@@ -1583,12 +1612,17 @@ def main() -> None:
         t = time.perf_counter()
         runs_card.append(lif.simulate_spikes(snn, n_steps=SNN_STEPS, device=dev))
         sim_card_s.append(time.perf_counter() - t)
+    sim_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(sim_launches == {"lif_record": 2},
+          f"two recordings launched {sim_launches}, not lif_record once each and nothing else")
     counts_card = runs_card[0]
     draws = lif.input_draws(snn.n_neurons, SNN_STEPS, 0, dev).cpu()
+    # the host's recording is the plain version, as simulate_spikes runs it
+    # with device="cpu"; its last v and refr are phase 27's reference too
     t = time.perf_counter()
-    counts_host = lif._simulate(*lif.snn_tensors(snn, "cpu"), draws,
-                                params=lif.LIFParams()).numpy().astype(np.float64)
+    host_record = ops.lif_record(*lif.snn_tensors(snn, "cpu"), draws, lif.LIFParams())
     sim_host_s = time.perf_counter() - t
+    counts_host = host_record[0].numpy().astype(np.float64)
     is_in = snn.layer_of == 0
     check(np.array_equal(runs_card[1], counts_card),
           "simulate_spikes: two card runs give different counts")
@@ -1626,6 +1660,49 @@ def main() -> None:
     snn_launches = dict(ops.LAUNCHES)
     read_into("snn_crossbar")
     where.update(path=None, app=None)
+    # simulate_spikes' card wall split, off the path: the synapses sorted and
+    # copied to the card, the draws, the launch, the counts copied back
+    split = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    syn_card, in_card = lif.snn_tensors(snn, dev)
+    torch.cuda.synchronize()
+    split["snn_tensors_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    draws_card = lif.input_draws(snn.n_neurons, SNN_STEPS, 0, dev)
+    torch.cuda.synchronize()
+    split["input_draws_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    counts_split = ops.lif_record(syn_card, in_card, draws_card, lif.LIFParams())[0]
+    torch.cuda.synchronize()
+    split["lif_record_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    check(np.array_equal(counts_split.cpu().numpy().astype(np.float64), counts_host),
+          "the split recording's counts differ from the host's")
+    split["counts_to_host_s"] = time.perf_counter() - t
+    # the recording's route before lif_record, off the path: the per-step
+    # eager loop around spike_input, on the same draws; a second run sees
+    # each step's spikes for the share of synapses whose source fired
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stepwise = ref.lif_record_ref(syn_card, in_card, draws_card, lif.LIFParams(),
+                                  spike_input=ops.spike_input)
+    torch.cuda.synchronize()
+    stepwise_s = time.perf_counter() - t
+    check(all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+              for a, b in zip(stepwise, host_record)),
+          "the per-step loop around spike_input differs from the host's recording")
+    out_degree = torch.bincount(syn_card.pre.long(), minlength=snn.n_neurons).double()
+    active_synapses = []
+
+    def seen_spike_input(s, csr):
+        active_synapses.append(float(s.double() @ out_degree))
+        return ops.spike_input(s, csr)
+
+    ref.lif_record_ref(syn_card, in_card, draws_card, lif.LIFParams(),
+                       spike_input=seen_spike_input)
+    active_share = [a / snn.n_synapses for a in active_synapses]
+    del syn_card, in_card, draws_card, stepwise, counts_split
     k5 = snn_launches["lif_crossbar_step"]
     check(k5 == CROSSBAR_STEPS * (1 + CROSSBAR_EXAMPLE_CLUSTERS),
           f"K5 launched {k5} times, not {CROSSBAR_STEPS} stacked steps and "
@@ -1642,7 +1719,14 @@ def main() -> None:
     emit({"phase": "snn_crossbar", "app": SNN_APP, "neurons": snn.n_neurons,
           "synapses": snn.n_synapses,
           "simulate": {"steps": SNN_STEPS, "card_s": sim_card_s, "host_s": sim_host_s,
-                       "counts_identical_card_card_host": True,
+                       "launches": sim_launches, "counts_identical_card_card_host": True,
+                       "card_split": split,
+                       "stepwise_loop_card_s": stepwise_s,
+                       "stepwise_loop": "per-step eager ops around ops.spike_input, the "
+                                        "route before lif_record; equal to the host",
+                       "active_share_mean": statistics.mean(active_share),
+                       "active_share_min": min(active_share),
+                       "active_share_max": max(active_share),
                        "non_input_spikes": float(counts_host[~is_in].sum()),
                        "input_spikes": float(counts_host[is_in].sum())},
           "crossbar": {"n_clusters": cl.n_clusters, "samples": CROSSBAR_SAMPLES,
@@ -3288,16 +3372,73 @@ def main() -> None:
         FP32_FLOPS_PER_S)
     del x7, dt7, a7, b7, c7, h07, zeros7, kc, path_largest
 
-    # spike_input on the inputs of its largest call (HeartClass's recording),
-    # against the plain version on the host (the card's index_add_ adds in no
-    # fixed order); the yardstick is one CSR sparse matrix-vector product
-    s9, csr9 = largest["spike_input"]["args"]
+    # lif_record on the inputs of its largest call (HeartClass's recording),
+    # against the plain version on the host from phase 12 (the card's
+    # index_add_ adds in no fixed order): counts, last v and refr bit for
+    # bit.  Bound: the bytes once (the synapses stay in the L2) against the
+    # synapse-steps whose source fired, 2 flops each (phase 12's count).
+    csr_r, in_r, draws_r, params_r = largest["lif_record"]["args"]
+    rec = ops.lif_record(csr_r, in_r, draws_r, params_r)
+    check(all(torch.equal(a, b) for a, b in zip(ops.lif_record(csr_r, in_r, draws_r, params_r),
+                                                rec)),
+          "lif_record differs between two launches")
+    check(all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+              for a, b in zip(rec, host_record)),
+          "lif_record differs from its plain version on the host bit for bit")
+    err_r = max(max_abs_err(a.cpu().double(), b.double()) for a, b in zip(rec, host_record))
+    n_r, e_r, steps_r = largest["lif_record"]["shape"]
+    n_inputs_r = int(in_r.sum())
+    active_r = round(sum(active_synapses))
+    rec_lib = _build.library("lif_record")
+    grid_r = (ctypes.c_int * 5)()
+    check(rec_lib.lif_record_grid(n_r, e_r, grid_r) == 0, "lif_record_grid failed")
+
+    def barrier_floor():
+        check(rec_lib.lif_barrier_floor(n_r, e_r, steps_r, ops._stream(draws_r)) == 0,
+              "the barrier floor's launch failed")
+
+    def launch_floor():
+        check(rec_lib.empty_launch(ops._stream(draws_r)) == 0, "the empty launch failed")
+
+    barrier_ms, launch_ms = timed(barrier_floor), timed(launch_floor)
+    record("lif_record", "src/repro_torch/csrc/lif_record.cu", "src/repro/core/lif.py:34",
+           lambda: ops.lif_record(csr_r, in_r, draws_r, params_r),
+           lambda: ref.lif_record_ref(csr_r, in_r, draws_r, params_r),
+           err_r, *kwork.lif_record_work(n_r, e_r, steps_r, n_inputs_r, active=active_r),
+           FP32_FLOPS_PER_S,
+           library_note="none: no single PyTorch call runs a recorded LIF simulation",
+           replaces_note="not a Pallas kernel: the reference's jitted lax.scan of _simulate "
+                         "(src/repro/core/lif.py:34-68)",
+           plain_device="cuda (index_add_, no fixed order); timed alone, 3 calls after one",
+           bound_note="bytes read once: the synapses stay in the L2 from step to step; "
+                      "operations: 2 a synapse-step whose source fired",
+           bound_ms_every_synapse=bound(*kwork.lif_record_work(n_r, e_r, steps_r, n_inputs_r),
+                                        FP32_FLOPS_PER_S)[0],
+           active_synapse_steps=active_r, active_share_mean=active_r / (e_r * steps_r),
+           barrier_floor_ms=barrier_ms, launch_floor_ms=launch_ms,
+           stepwise_ms=timed(lambda: ref.lif_record_ref(csr_r, in_r, draws_r, params_r,
+                                                        spike_input=ops.spike_input)),
+           stepwise_note="the route before lif_record: the per-step eager loop around "
+                         "spike_input, CUDA events around one loop (host-bound)",
+           grid=dict(zip(("blocks", "threads", "chunk", "cached_synapses", "smem_bytes"),
+                         grid_r)),
+           equal_in_two_launches=True, bit_identical_counts_v_refr=True)
+
+    # spike_input, off the path: on HeartClass's synapses and the fired flags
+    # of recorded step SI_STEP, against the plain version on the host; the
+    # yardstick is one CSR sparse matrix-vector product
+    s9 = recorded_spikes(csr_r, in_r, draws_r, params_r, SI_STEP)
+    csr9 = csr_r
     csr9_host = ref.SynapseCSR(**{f: getattr(csr9, f).cpu()
                                   for f in ("indptr", "pre", "weight", "post")})
     k9 = ops.spike_input(s9, csr9)
     check(torch.equal(ops.spike_input(s9, csr9), k9), "spike_input differs between two launches")
-    err9 = max_abs_err(k9.cpu(), ref.spike_input_ref(s9.cpu(), csr9_host))
+    want9 = ref.spike_input_ref(s9.cpu(), csr9_host)
+    check(torch.equal(k9.cpu().view(torch.int32), want9.view(torch.int32)),
+          "spike_input differs from its plain version on the host bit for bit")
+    err9 = max_abs_err(k9.cpu(), want9)
     n9, e9 = csr9.n_neurons, int(csr9.pre.numel())
+    active9 = int(out_degree[s9.bool()].sum())
     deg9 = torch.diff(csr9.indptr.long())
     with warnings.catch_warnings():       # sparse CSR support is in beta
         warnings.simplefilter("ignore")
@@ -3307,17 +3448,24 @@ def main() -> None:
         library9, library9_error = (lambda: sparse9 @ s9), None
     except RuntimeError as e:      # no sparse product for these index types
         library9, library9_error = None, str(e).splitlines()[0][:200]
-    # indptr, pre and w in, s in, i out; a multiply and an add a synapse
+    # the row's bound as in PR 16-24: indptr, pre and w in, s in, i out, a
+    # multiply and an add a synapse; beside it w only where the source fired
     record("spike_input", "src/repro_torch/csrc/spike_input.cu",
            "src/repro/core/lif.py:58",
            lambda: ops.spike_input(s9, csr9), lambda: ref.spike_input_ref(s9, csr9),
-           err9, 4 * (n9 + 1) + 8 * e9 + 8 * n9, 2 * e9, FP32_FLOPS_PER_S,
+           err9, *kwork.spike_input_work(n9, e9), FP32_FLOPS_PER_S,
+           at={"shape": (n9, e9), "path": None, "app": SNN_APP},
            library=library9, library_call="torch.sparse_csr_tensor(indptr, pre, w) @ s",
            library_error=library9_error, plain_device="cuda (index_add_, no fixed order)",
-           replaces_note="not a Pallas kernel: the reference's jax.ops.segment_sum",
+           replaces_note="not a Pallas kernel: the reference's jax.ops.segment_sum; on no "
+                         "path since the recording is one launch (lif_record)",
+           on_main_path=False, step=SI_STEP, active_synapses=active9,
+           active_share=active9 / e9,
+           bound_ms_active=bound(*kwork.spike_input_work(n9, e9, active=active9),
+                                 FP32_FLOPS_PER_S)[0],
            in_degree_mean=float(deg9.double().mean()), in_degree_max=int(deg9.max()),
            equal_in_two_launches=True)
-    del s9, csr9, csr9_host, k9, sparse9
+    del s9, csr9, csr9_host, k9, sparse9, rec, csr_r, in_r, draws_r, host_record
 
     for kern in kernels:
         check(kern["launches"] > 0 or kern["name"] in OFF_PATH,

@@ -6,12 +6,13 @@ input on layer 0 and leaky-integrate-and-fire dynamics everywhere else, and
 records per-neuron spike counts.  Those counts feed the partitioner exactly
 like the CARLsim recordings in the paper (§2.4).
 
-The synaptic accumulate (``I[post] += w * s[pre]``) is
-``kernels.ops.spike_input`` over the synapses sorted stably by ``post``: it
-adds each neuron's synapses in synapse order, so the counts are the same
-bit for bit on the card, on the host and from run to run (the counts feed
-``partition_greedy``, whose clustering is bit-identical); the *clustered*
-execution path (dense 128x128 crossbar blocks) is K5,
+The whole recording is ``kernels.ops.lif_record``: one persistent launch
+on the card, the plain step loop on the host.  Its synaptic accumulate
+(``I[post] += w * s[pre]``) runs over the synapses sorted stably by
+``post`` and adds each neuron's synapses in synapse order, so the counts
+are the same bit for bit on the card, on the host and from run to run (the
+counts feed ``partition_greedy``, whose clustering is bit-identical); the
+*clustered* execution path (dense 128x128 crossbar blocks) is K5,
 ``kernels.ops.lif_crossbar_step``.
 
 The reference draws its Poisson input with ``jax.random``, which PyTorch
@@ -57,23 +58,7 @@ def _simulate(
     step t's input neuron i spiking where ``draws[t, i] < input_rate``.
     All on one device.
     """
-    n_steps, n = draws.shape
-    dev = synapses.weight.device
-    dtype = synapses.weight.dtype
-    v = torch.zeros((n,), dtype=dtype, device=dev)
-    refr = torch.zeros((n,), dtype=torch.int32, device=dev)
-    counts = torch.zeros((n,), dtype=dtype, device=dev)
-    not_input = ~is_input
-    for t in range(n_steps):
-        in_spike = (draws[t] < params.input_rate) & is_input
-        fired = ((v >= params.v_threshold) & (refr <= 0) & not_input) | in_spike
-        s = fired.to(dtype)
-        i_syn = ops.spike_input(s, synapses)
-        v = torch.where(fired, params.v_reset, v * params.leak) \
-            + torch.where(is_input, 0.0, i_syn)
-        refr = torch.where(fired, params.refractory, torch.clamp_min(refr - 1, 0)).to(torch.int32)
-        counts += s
-    return counts
+    return ops.lif_record(synapses, is_input, draws, params)[0]
 
 
 def simulate_spikes(

@@ -69,6 +69,15 @@ SIGNATURES = {
     "spike_input": {
         "spike_input": [_P, _P, _P, _P, _P, _I, _P],   # indptr, pre, w, s, out, n, stream
     },
+    "lif_record": {
+        # indptr, pre, w, is_input, draws, counts, v, refr, masks, n, E,
+        # n_steps, v_th, v_reset, leak, refractory, input_rate, stream
+        "lif_record": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+        # n, E, out[5]: blocks, threads, chunk, cached synapses, smem bytes
+        "lif_record_grid": [_I, _I, _P],
+        "lif_barrier_floor": [_I, _I, _I, _P],     # n, E, n_steps, stream
+        "empty_launch": [_P],                  # stream
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

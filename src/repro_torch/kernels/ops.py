@@ -43,6 +43,7 @@ LAUNCHES = {
     "mamba_chunk_combine": 0,
     "mamba_scan_route": 0,
     "spike_input": 0,
+    "lif_record": 0,
 }
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
@@ -400,12 +401,14 @@ def lif_crossbar_step(
 
 
 # ======================================================================
-# the spike recording's synaptic input
+# the spike recording: one step's synaptic input, and the whole recording
 # ======================================================================
 def spike_input(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
     """(n_neurons,) float32 synaptic input ``i[v] = sum of w_e * s[pre_e]``
     over v's incoming synapses in synapse order (see ``ref.spike_input_ref``),
-    bit for bit the same on every device and in every run."""
+    bit for bit the same on every device and in every run for finite
+    weights (the kernel adds only the nonzero products, and skips w where
+    s is 0)."""
     if _on_cpu(s, csr.pre, csr.weight):
         return ref.spike_input_ref(s, csr)
     if s.shape != (csr.n_neurons,):
@@ -423,6 +426,46 @@ def spike_input(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
     _raise_on(err, "spike_input")
     LAUNCHES["spike_input"] += 1
     return out
+
+
+def lif_record(
+    csr: SynapseCSR, is_input: torch.Tensor, draws: torch.Tensor, params,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole LIF spike recording over ``draws.shape[0]`` steps, ``(counts,
+    v, refr)`` (see ``ref.lif_record_ref``), bit for bit the same on every
+    device for finite weights; one cooperative launch on the card, which
+    raises where the card cannot hold its grid.  ``params`` has
+    ``core.lif.LIFParams``' fields, rounded to float32 for the kernel as
+    each op of the plain version rounds them."""
+    n = csr.n_neurons
+    if is_input.shape != (n,) or draws.dim() != 2 or draws.shape[1] != n:
+        raise ValueError(f"shape mismatch: is_input {tuple(is_input.shape)}, draws "
+                         f"{tuple(draws.shape)} for {n} neurons")
+    if _on_cpu(draws, is_input, csr.pre, csr.weight):
+        return ref.lif_record_ref(csr, is_input, draws, params)
+    for t, dt, name in ((draws, torch.float32, "draws"), (is_input, torch.bool, "is_input"),
+                        (csr.weight, torch.float32, "weight"),
+                        (csr.indptr, torch.int32, "indptr"), (csr.pre, torch.int32, "pre")):
+        _check(t, dt, name)
+    n_steps = draws.shape[0]
+    # the kernel's prologue zeros the state; the two alternating fired
+    # bitmasks of ceil(n/32) words are its scratch
+    new = torch.zeros if n == 0 or n_steps == 0 else torch.empty
+    counts, v = (new((n,), dtype=torch.float32, device=draws.device) for _ in range(2))
+    refr = new((n,), dtype=torch.int32, device=draws.device)
+    if n == 0 or n_steps == 0:
+        return counts, v, refr
+    masks = torch.empty((2 * (-(-n // 32)),), dtype=torch.int32, device=draws.device)
+    fn = _build.library("lif_record").lif_record
+    with _launch_on(draws) as stream:
+        err = fn(csr.indptr.data_ptr(), csr.pre.data_ptr(), csr.weight.data_ptr(),
+                 is_input.view(torch.uint8).data_ptr(), draws.data_ptr(), counts.data_ptr(),
+                 v.data_ptr(), refr.data_ptr(), masks.data_ptr(), n, int(csr.pre.numel()),
+                 n_steps, params.v_threshold, params.v_reset, params.leak,
+                 int(params.refractory), params.input_rate, stream)
+    _raise_on(err, "lif_record")
+    LAUNCHES["lif_record"] += 1
+    return counts, v, refr
 
 
 # ======================================================================

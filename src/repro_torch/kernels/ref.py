@@ -4,11 +4,12 @@ Each function computes exactly what its kernel in ``csrc/`` computes.  The
 (max,+) products round one add per term and the relaxation rounds
 ``w - lam*t`` and the add separately, while max is exact; the LIF crossbar
 step adds its products in increasing k; so on the same inputs kernel and
-plain version agree bit for bit; so does the synaptic sum, which adds each
-node's synapses in synapse order.  Attention sums in another order than
-its kernel, and the chunk scan's ``exp`` may differ from the kernel's
-``expf`` by an ulp (the states-only pass and the chunk combine compute
-theirs otherwise too), so those agree within a stated tolerance.
+plain version agree bit for bit; so do the synaptic sum, which adds each
+node's synapses in synapse order, and the LIF recording built on it.
+Attention sums in another order than its kernel, and the chunk scan's
+``exp`` may differ from the kernel's ``expf`` by an ulp (the states-only
+pass and the chunk combine compute theirs otherwise too), so those agree
+within a stated tolerance.
 :mod:`repro_torch.kernels.ops` routes CPU tensors here; ``chip_smoke.py``
 holds every kernel against these on the card.
 """
@@ -255,6 +256,38 @@ def spike_input_ref(s: torch.Tensor, csr: SynapseCSR) -> torch.Tensor:
     the sum over the unsorted list)."""
     out = torch.zeros(csr.n_neurons, dtype=s.dtype, device=s.device)
     return out.index_add_(0, csr.post, csr.weight * s[csr.pre.long()])
+
+
+def lif_record_ref(
+    csr: SynapseCSR, is_input: torch.Tensor, draws: torch.Tensor, params,
+    *, spike_input=spike_input_ref,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LIF spike recording, ``(counts, v, refr)`` after ``draws.shape[0]``
+    steps: float32 spike counts, the last membrane potentials and the last
+    int32 refractory counters (see ``core.lif.LIFParams`` for ``params``).
+
+    is_input: (n,) bool; draws: (n_steps, n) uniform float32, input neuron
+    i spiking at step t where ``draws[t, i] < input_rate``.  The parameters
+    are Python numbers that each op rounds to float32, as the reference's
+    weak-typed scalars are.  ``spike_input(s, csr)`` is each step's
+    synaptic sum (``chip_smoke.py`` passes ``ops.spike_input``: the step
+    loop around the kernel, the recording's route before ``lif_record``)."""
+    n_steps, n = draws.shape
+    dev, dtype = csr.weight.device, csr.weight.dtype
+    v = torch.zeros((n,), dtype=dtype, device=dev)
+    refr = torch.zeros((n,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n,), dtype=dtype, device=dev)
+    not_input = ~is_input
+    for t in range(n_steps):
+        in_spike = (draws[t] < params.input_rate) & is_input
+        fired = ((v >= params.v_threshold) & (refr <= 0) & not_input) | in_spike
+        s = fired.to(dtype)
+        i_syn = spike_input(s, csr)
+        v = torch.where(fired, params.v_reset, v * params.leak) \
+            + torch.where(is_input, 0.0, i_syn)
+        refr = torch.where(fired, params.refractory, torch.clamp_min(refr - 1, 0)).to(torch.int32)
+        counts += s
+    return counts, v, refr
 
 
 # ----------------------------------------------------------------------

@@ -2,10 +2,11 @@
 does, from its inputs' shapes.
 
 One formula each for flash attention (K6), the chunk scan (K7), its
-states-only pass, the chunk combine and the scan's route.  ``chip_smoke.py``
-divides them by the card's rates for each kernel's ``bound_ms``; the dry run
-(``launch/dryrun.py``) charges them for each wrapper call, on every
-device, in place of the plain version's operations.  Bytes count each
+states-only pass, the chunk combine, the scan's route, the synaptic sum and
+the LIF recording.  ``chip_smoke.py`` divides them by the card's rates for
+each kernel's ``bound_ms``; the dry run (``launch/dryrun.py``) charges the
+first five for each wrapper call, on every device, in place of the plain
+version's operations.  Bytes count each
 input read once and each output written once; a multiply-add is two
 operations.
 """
@@ -75,3 +76,25 @@ def route_work(x, a, b, *, chunk: int) -> tuple[int, int]:
     between = max(nc - 2, 0) * chunk
     return nbytes, (7 * length + 2 * between) * bsz * d * n + bsz * length * d \
         + (nc - 1) * (chunk * bsz * d + 4 * bsz * d * n)
+
+
+def spike_input_work(n: int, e: int, active: int | None = None) -> tuple[int, int]:
+    """The synaptic sum over n neurons' E synapses: indptr, pre and w in, s
+    in, i out, and a multiply and an add a synapse.  With ``active``, the
+    synapses whose source fired: w's bytes and the operations only for
+    those (the kernel loads w and adds only where s is nonzero)."""
+    if active is None:
+        return 4 * (n + 1) + 8 * e + 8 * n, 2 * e
+    return 4 * (n + 1) + 4 * e + 4 * active + 8 * n, 2 * active
+
+
+def lif_record_work(n: int, e: int, n_steps: int, n_inputs: int,
+                    active: int | None = None) -> tuple[int, int]:
+    """The LIF recording of n neurons (``n_inputs`` of them input neurons)
+    over E synapses for ``n_steps`` steps: indptr, pre, w and is_input read
+    once (the synapses stay in the L2 from step to step), the input
+    neurons' draws, counts, v and refr written once; a multiply and an add
+    a synapse a step, or with ``active`` (synapse-steps whose source fired)
+    only for those."""
+    nbytes = 4 * (n + 1) + 8 * e + n + 4 * n_inputs * n_steps + 12 * n
+    return nbytes, 2 * (e * n_steps if active is None else active)

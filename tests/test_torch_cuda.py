@@ -70,6 +70,9 @@ def _kernel_calls(dist, lams, csr, a):
         lambda: ops.mamba_scan_route(*scan[:5], chunk=16),
         lambda: ops.spike_input(a[0, 0], tlif.synapse_csr(
             np.array([0, 1]), np.array([1, 2]), np.ones(2), 4, a.device)),
+        lambda: ops.lif_record(tlif.synapse_csr(
+            np.array([0, 1]), np.array([1, 2]), np.ones(2), 4, a.device),
+            torch.zeros(4, dtype=torch.bool, device=a.device), a[0, :3], tlif.LIFParams()),
     )
 
 
@@ -205,6 +208,7 @@ def _wrapper_calls():
     syn = tref.SynapseCSR(indptr=torch.tensor([0, 1, 2], dtype=torch.int32),
                           pre=torch.tensor([1, 0], dtype=torch.int32),
                           weight=torch.ones(2), post=torch.tensor([0, 1]))
+    draws = torch.zeros((3, 2))
     return {
         "relax_round": (dist, lambda: ops.relax_round(dist, lams, csr)),
         "relax_round_witness": (dist, lambda: ops.relax_round_witness(dist, lams, csr)),
@@ -219,6 +223,8 @@ def _wrapper_calls():
             scan[1], scan[2], scan[5], chunk=16)),
         "mamba_scan_route": (scan[0], lambda: ops.mamba_scan_route(*scan[:5], chunk=16)),
         "spike_input": (syn.weight, lambda: ops.spike_input(torch.ones(2), syn)),
+        "lif_record": (draws, lambda: ops.lif_record(
+            syn, torch.zeros(2, dtype=torch.bool), draws, tlif.LIFParams())),
     }
 
 
@@ -938,6 +944,166 @@ def test_spike_input_bit_identical_twice_on_the_card(seed):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["spike_input"] == before + 2
     assert torch.equal(first.cpu(), host) and torch.equal(second, first)
+
+
+def test_lif_record_passes_its_operands_and_raises_on_a_refused_launch(monkeypatch):
+    """The C entry gets the CSR, is_input's bytes (a uint8 view of the bool
+    tensor's storage), the draws, the three outputs, n, n_steps and the
+    parameters as Python numbers (c_float for ctypes); a recording of no
+    steps launches nothing; what the kernel does not take raises before the
+    build; a refused cooperative launch (cudaErrorCooperativeLaunchTooLarge,
+    720) raises and is not counted, and nothing falls back."""
+    lib = _fake_lib(monkeypatch)
+    csr, is_input = tlif.snn_tensors(small_app(70, 500, seed=2), "cpu")
+    n = csr.n_neurons
+    draws = torch.rand((9, n))
+    params = tlif.LIFParams(refractory=3, v_reset=-0.25)
+    before = ops.LAUNCHES["lif_record"]
+    counts, v, refr = ops.lif_record(csr, is_input, draws, params)
+    (entry, args, _), = lib.calls
+    assert entry == "lif_record" and ops.LAUNCHES["lif_record"] == before + 1
+    assert args[:8] == (csr.indptr.data_ptr(), csr.pre.data_ptr(), csr.weight.data_ptr(),
+                        is_input.data_ptr(), draws.data_ptr(), counts.data_ptr(),
+                        v.data_ptr(), refr.data_ptr())
+    assert args[9:] == (n, int(csr.pre.numel()), 9, 1.0, -0.25, 0.9, 3, 0.08, 0)
+    assert (counts.dtype, v.dtype, refr.dtype) == (torch.float32, torch.float32, torch.int32)
+    lib.calls.clear()
+    counts, v, refr = ops.lif_record(csr, is_input, draws[:0], params)
+    assert lib.calls == [] and not counts.any() and not v.any() and not refr.any()
+    with pytest.raises(TypeError, match="is_input must be"):
+        ops.lif_record(csr, is_input.to(torch.uint8), draws, params)
+    with pytest.raises(TypeError, match="draws must be"):
+        ops.lif_record(csr, is_input, draws.double(), params)
+    monkeypatch.setattr(_build, "library", lambda stem: type(
+        "Refusing", (), {"lif_record": staticmethod(lambda *a: 720)}))
+    with pytest.raises(RuntimeError, match="lif_record failed with cudaError_t 720"):
+        ops.lif_record(csr, is_input, draws, params)
+    assert ops.LAUNCHES["lif_record"] == before + 1
+
+
+def _assert_same_bits_nan_where_nan(got: torch.Tensor, want: torch.Tensor):
+    """Equal bit for bit, except that a NaN need only be a NaN (the card's
+    NaN is canonical, the host's keeps a payload)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spikes", ["zero", "one", "negative_zero", "non_finite", "general"])
+def test_spike_input_skips_only_zero_products_on_the_card(spikes):
+    """The walk over nonzero products against the host's sum of every
+    product: s all 0, all 1, -0 (with signed weights, so products of both
+    zero signs), with inf and NaN, and general floats; every bit equal, a
+    NaN where the host has one."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(3)
+    n, e = 2000, 200_000
+    post = rng.integers(0, n - 5, e)
+    post[:3000] = 11
+    pre = rng.integers(0, n, e)
+    w = rng.standard_normal(e).astype(np.float32)
+    s = {"zero": np.zeros(n), "one": np.ones(n),
+         "negative_zero": np.where(rng.random(n) < 0.5, -0.0, 0.0),
+         "non_finite": np.where(rng.random(n) < 0.3, 1.0, 0.0),
+         "general": np.where(rng.random(n) < 0.5, rng.uniform(-3, 3, n), 0.0)}[spikes]
+    s = torch.as_tensor(s.astype(np.float32))
+    if spikes == "non_finite":
+        s[[3, 50]], s[[8, 90]] = float("inf"), float("nan")
+    host = tref.spike_input_ref(s, tlif.synapse_csr(pre, post, w, n, "cpu"))
+    card = ops.spike_input(s.to(dev), tlif.synapse_csr(pre, post, w, n, dev)).cpu()
+    _assert_same_bits_nan_where_nan(card, host)
+    if spikes in ("zero", "negative_zero"):
+        assert torch.equal(card.view(torch.int32), torch.zeros(n, dtype=torch.int32))
+
+
+#: the recording's card test, run in a child process: a grid barrier that
+#: never opens would hang the card, and the child's timeout ends it
+LIF_RECORD_CHILD = r"""
+import ctypes
+import json
+import numpy as np
+import torch
+from repro_torch.core import lif as tlif
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import ref as tref
+
+CASES = {  # name: (neurons, synapses, steps, LIFParams fields)
+    "ragged": (3007, 300_000, 64, {}),
+    "refractory_0": (3007, 300_000, 64, {"refractory": 0}),
+    "refractory_3_reset": (3007, 300_000, 64, {"refractory": 3, "v_reset": -0.25}),
+    "leak_1": (3007, 300_000, 64, {"leak": 1.0, "v_threshold": 0.5}),
+    "one_word": (29, 400, 20, {}),
+    "wide": (1_200_007, 2_400_000, 6, {"input_rate": 0.3}),
+}
+dev = torch.device("cuda")
+out = {}
+for name, (n, e, steps, fields) in CASES.items():
+    rng = np.random.default_rng(n + e)
+    post = rng.integers(0, n - min(10, n // 4), e)        # the last neurons have none
+    if e > 5000:
+        post[:5000] = 7                                   # one neuron of 5000 synapses
+    pre = rng.integers(0, n, e)
+    w = (rng.standard_normal(e) * (0.6 if n < 100 else 0.3)).astype(np.float32)
+    is_input = torch.as_tensor(rng.random(n) < 0.2)
+    draws = torch.as_tensor(rng.random((steps, n), dtype=np.float32))
+    params = tlif.LIFParams(**fields)
+    host = tref.lif_record_ref(tlif.synapse_csr(pre, post, w, n, "cpu"), is_input, draws, params)
+    csr = tlif.synapse_csr(pre, post, w, n, dev)
+    before = ops.LAUNCHES["lif_record"]
+    first = ops.lif_record(csr, is_input.to(dev), draws.to(dev), params)
+    second = ops.lif_record(csr, is_input.to(dev), draws.to(dev), params)
+    torch.cuda.synchronize()
+    grid = (ctypes.c_int * 5)()
+    _build.library("lif_record").lif_record_grid(n, e, grid)
+    out[name] = {
+        "launches": ops.LAUNCHES["lif_record"] - before,
+        "equal_host": [torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(first, host)],
+        "equal_twice": all(torch.equal(a, b) for a, b in zip(first, second)),
+        "hidden_spikes": float(host[0][~is_input].sum()),
+        "grid": list(grid),
+        "n": n,
+        "e": e,
+    }
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_lif_record_bit_identical_to_its_plain_version_on_the_card():
+    """The recording in one launch against ``ref.lif_record_ref`` on the
+    host: counts, last v and refr equal bit for bit, and two launches
+    equal, at ragged n (not a multiple of 32 or of a block's range), with
+    neurons of 0 and 5000 synapses, signed weights, the parameter variants,
+    a recording of one word (one block with neurons, the rest empty) and
+    one of 1.2M neurons (several chunks a block, the bitmask over 48 KB of
+    shared memory, so that most synapses are read from device memory, not
+    from the block's cache); one launch a recording.  In a child process
+    under a timeout."""
+    _need_cuda()
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", LIF_RECORD_CHILD], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    cases = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, case in cases.items():
+        assert case["launches"] == 2, name
+        assert case["equal_host"] == [True, True, True], (name, case)
+        assert case["equal_twice"], name
+        assert case["hidden_spikes"] > 0, name
+    wide = cases["wide"]
+    assert wide["n"] / wide["grid"][0] > wide["grid"][2] and wide["grid"][4] > 48 * 1024
+    assert wide["grid"][0] * wide["grid"][3] < wide["e"]
+    assert cases["one_word"]["grid"][3] == cases["one_word"]["e"]
 
 
 # ======================================================================

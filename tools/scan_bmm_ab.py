@@ -183,7 +183,7 @@ def build(k7: list[str], k2: list[str], route: list[str] = ()) -> dict[str, ctyp
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "k.cu").write_text(text)
-        for header in _build._headers(_build.CSRC / "mamba_scan.cu"):
+        for header in _build.CSRC.glob("*.cuh"):
             (d / header.name).write_text(header.read_text())
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / "lib.so"),
                str(d / "k.cu")]
