@@ -290,6 +290,9 @@ RELAX_TERMS_PER_S = FP64_FLOPS_PER_S / 8
 #: each of K7's expf issues one MUFU.EX2: 16 a clock per SM, 132 SMs, at the
 #: H100 SXM's 1.98 GHz boost clock (a second bound, beside the table's)
 EX2_PER_S = 132 * 16 * 1.98e9
+#: thread-instructions a second: a warp instruction a clock from each of an
+#: SM's 4 schedulers, 132 SMs, 1.98 GHz (K7's issue floor)
+THREAD_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 
 #: n_tiles_request per app, each between 2 and 16
 REQUESTS = {
@@ -3348,28 +3351,84 @@ def main() -> None:
                          "ops.mamba_scan, between its two Pallas launches",
            library_note="none: no single PyTorch call computes the chunk recurrence")
 
-    # K7 from the combined states (nonzero chunk states), within SCAN_TOL
+    # K7 at three calls, each bit for bit against its plain version: the
+    # direct 32k call from the combined states (the kernels line's row),
+    # jamba_serve's one-chunk prefill call from zero states (no h0 read) and
+    # the same layer's first 4096 tokens as 32 prompts of one chunk, bf16,
+    # from zero.  Beside the bound: the SFU floor of the exact expf, and
+    # the issue floor, the SASS instructions a term of the kernel's hot loop
+    # (cuobjdump) over the card's 132 x 4 schedulers at 1.98 GHz.
     h07 = kc
-    (ky, kh), (py, ph) = (ops.mamba_chunk_scan(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
-                          ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, h07, chunk=chunk7))
-    y_ratio, h_ratio = ref.scan_excess(ky, py, chunk7), ref.state_excess(kh, ph)
-    y_err, h_err = max_abs_err(ky, py), max_abs_err(kh, ph)
-    del ky, kh, py, ph, ks
+    scan_lib = _build.library("mamba_scan")
+
+    def same_bits(u, v):
+        as_int = torch.int32 if u.dtype == torch.float32 else torch.int16
+        return u.dtype == v.dtype and torch.equal(u.view(as_int), v.view(as_int))
+
+    def k7_call(call, path, args, start, launches):
+        x, dt, a, b, c, h0 = args
+        chunk = call.get("chunk", 128)
+        h_start = torch.zeros((x.shape[0], -(-x.shape[1] // chunk), x.shape[2], a.shape[1]),
+                              device=dev) if h0 is None else h0
+        (ky, kh), (py, ph) = (ops.mamba_chunk_scan(*args, chunk=chunk),
+                              ref.mamba_chunk_scan_ref(x, dt, a, b, c, h_start, chunk=chunk))
+        err = max(max_abs_err(ky, py), max_abs_err(kh, ph))
+        bits = same_bits(ky, py) and same_bits(kh, ph)
+        check(bits and err == 0.0, f"K7 differs from its plain version at {path}'s call "
+                                   f"{tuple(x.shape)} (max abs err {err})")
+        del ky, kh, py, ph
+        terms = x.numel() * a.shape[1]
+        dtype = str(x.dtype).split(".")[-1]
+        # the instantiation this call runs: its lanes a channel and type
+        lanes = scan_lib.mamba_chunk_scan_lanes(*x.shape, a.shape[1], chunk)
+        check(lanes in (1, 2), f"K7 took {lanes} lanes a channel")
+        sass = _build.sass_per_term(_build._lib_path("mamba_scan"), (("k7", (
+            f"mamba_chunk_scan_kernelILi{a.shape[1]}ELi{lanes}E"
+            + ("f" if x.dtype == torch.float32 else "13__nv_bfloat16") + "Lb1E",)),))["k7"]
+        per_term = sass["instructions_a_term"]
+        b_ms, b_by = bound(*kwork.scan_work(x, a, b, h0, chunk=chunk), FP32_FLOPS_PER_S)
+        return {"path": path, "shape": dict(zip(shape_of["mamba_chunk_scan"][0],
+                                                (*x.shape, a.shape[1]))),
+                "dtype": dtype, "start": start, "lanes": lanes, "launches": launches,
+                "max_abs_err": err,
+                "bit_identical": bits,
+                "ms": timed(lambda: ops.mamba_chunk_scan(*args, chunk=chunk)),
+                "plain_ms": timed(lambda: ref.mamba_chunk_scan_ref(x, dt, a, b, c, h_start,
+                                                                   chunk=chunk)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "expf_bound_ms": 1e3 * terms / EX2_PER_S,
+                "issue_floor_ms": 1e3 * per_term * terms / THREAD_INSTR_PER_S,
+                "sass_instructions_a_term": per_term, "sass": sass}
+
+    serve7 = path_largest["mamba_chunk_scan"]["jamba_serve"]
+    check(serve7["args"][5] is None, "jamba_serve's one-chunk scan read an h0")
+    k7_rows = [
+        k7_call(serve7["kwargs"], "jamba_serve", serve7["args"], "zero",
+                seen["mamba_chunk_scan"]["jamba_serve"][serve7["shape"]]),
+        k7_call({"chunk": chunk7}, "off the path: jamba_prefill's first Mamba layer, its first "
+                "4096 tokens as 32 prompts",
+                (*(t[:, :32 * chunk7].reshape(32, chunk7, t.shape[2])
+                   for t in (x7, dt7)), a7,
+                 *(t[:, :32 * chunk7].reshape(32, chunk7, t.shape[2]) for t in (b7, c7)), None),
+                "zero", 0),
+        k7_call({"chunk": chunk7}, "off the path: jamba_prefill's first Mamba layer, direct",
+                (x7, dt7, a7, b7, c7, h07), "the combined states", 0),
+    ]
+    row7 = k7_rows[-1]
     record("mamba_chunk_scan", "src/repro_torch/csrc/mamba_scan.cu",
            "src/repro/kernels/mamba_scan.py:96",
            lambda: ops.mamba_chunk_scan(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
            lambda: ref.mamba_chunk_scan_ref(x7, dt7, a7, b7, c7, h07, chunk=chunk7),
-           max(y_err, h_err), *kwork.scan_work(x7, a7, b7, h07), FP32_FLOPS_PER_S,
-           tol_ratio=max(y_ratio, h_ratio), at=at7,
-           tolerance={"rtol": ref.SCAN_TOL[x7.dtype][0], "row_tol": ref.SCAN_TOL[x7.dtype][1],
-                      "state_rtol": rtol7, "state_row_tol": row_tol7},
-           y_tol_ratio=y_ratio, state_tol_ratio=h_ratio, y_max_abs_err=y_err,
-           state_max_abs_err=h_err, dtype=str(x7.dtype).split(".")[-1],
-           chunk=chunk7, expf=terms7, expf_bound_ms=1e3 * terms7 / EX2_PER_S,
+           row7["max_abs_err"], *kwork.scan_work(x7, a7, b7, h07, chunk=chunk7),
+           FP32_FLOPS_PER_S, at=at7, dtype=row7["dtype"], chunk=chunk7, expf=terms7,
+           expf_bound_ms=row7["expf_bound_ms"], issue_floor_ms=row7["issue_floor_ms"],
+           sass_instructions_a_term=row7["sass_instructions_a_term"], by_shape=k7_rows,
            library_note="none: no single PyTorch call computes a selective scan")
     kernels[-1]["by_path"] = by_path(
-        "mamba_chunk_scan", lambda x, dt, a, b, c, h0, chunk=128: kwork.scan_work(x, a, b, h0),
+        "mamba_chunk_scan",
+        lambda x, dt, a, b, c, h0, chunk=128: kwork.scan_work(x, a, b, h0, chunk=chunk),
         FP32_FLOPS_PER_S)
+    del ks, k7_rows, serve7
     del x7, dt7, a7, b7, c7, h07, zeros7, kc, path_largest
 
     # lif_record on the inputs of its largest call (HeartClass's recording),

@@ -60,6 +60,8 @@ SIGNATURES = {
         # x, dt, a, b, c, h0, y, h_out, is_bf16, B, L, D, N, chunk, stream
         # (y NULL: states only; h0 NULL: zero states)
         "mamba_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # B, L, D, N, chunk -> the lanes a channel K7 takes for that call
+        "mamba_chunk_scan_lanes": [_I, _I, _I, _I, _I],
         # dt, a, s_local, h_init, is_bf16, B, L, D, N, chunk, stream
         "mamba_chunk_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # x, dt, a, b, c, y, h_final, is_bf16, B, L, D, ld (x and dt's row
@@ -158,3 +160,46 @@ def library(stem: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu`` (built on first use)."""
     lib = _LIBS.get(stem)
     return lib if lib is not None else build_all()[stem]
+
+
+def sass_per_term(path: pathlib.Path, kernels) -> dict:
+    """The issue cost of the scans' hot loops, read from the SASS of a built
+    library or cubin ``path`` (``cuobjdump -sass``, beside ``nvcc``).  Per
+    ``(label, substrings of a mangled kernel name)`` of ``kernels``: of the
+    loops that hold MUFU.EX2 (one an exponential: one a (t, d, n) term),
+    the one with the fewest instructions (NOPs left out) per MUFU.EX2, its
+    instructions, its MUFU.EX2 and their quotient."""
+    cuobjdump = pathlib.Path(nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name is not None and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for label, parts in kernels:
+        found = [f for f in funcs if all(p in f for p in parts)]
+        if len(found) != 1:
+            out[label] = {"error": f"{len(found)} functions match {parts}"}
+            continue
+        ins = funcs[found[0]]
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr
+                        and not o.split()[0].startswith("NOP")]
+                mufu = sum("MUFU.EX2" in o for o in body)
+                if mufu:
+                    loops.append((len(body) / mufu, len(body), mufu))
+        if not loops:
+            out[label] = {"error": "no loop holds MUFU.EX2"}
+            continue
+        per_term, n_ins, mufu = min(loops)
+        out[label] = {"loop_instructions": n_ins, "mufu_ex2": mufu,
+                      "instructions_a_term": per_term}
+    return out

@@ -523,22 +523,27 @@ def _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, name):
 
 def mamba_chunk_scan(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-    c: torch.Tensor, h0: torch.Tensor, *, chunk: int = 128,
+    c: torch.Tensor, h0: torch.Tensor | None, *, chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan every ``chunk`` steps of (B, L, D) x and dt with (D, N) a and
     (B, L, N) b, c from the chunks' initial states h0 (B, ceil(L/chunk),
-    D, N) -> ``(y, h_final)`` (see ``ref.mamba_chunk_scan_ref``).  L need not
-    be a multiple of ``chunk``; nothing is padded."""
-    return _charged("mamba_chunk_scan", lambda: work.scan_work(x, a, b, h0),
+    D, N), or from zero states where h0 is None (the card reads none) ->
+    ``(y, h_final)`` (see ``ref.mamba_chunk_scan_ref``).  L need not be a
+    multiple of ``chunk``; nothing is padded."""
+    return _charged("mamba_chunk_scan", lambda: work.scan_work(x, a, b, h0, chunk=chunk),
                     lambda: _chunk_scan_leg(x, dt, a, b, c, h0, chunk))
 
 
 def _chunk_scan_leg(x, dt, a, b, c, h0, chunk):
+    bsz, length, d = x.shape
+    shape = (bsz, -(-length // chunk), d, a.shape[1])
     leg = _scan_leg(x, dt, a, b, c, h0, chunk)
     if leg == "cpu":
+        if h0 is None:
+            h0 = torch.zeros(shape, dtype=torch.float32, device=x.device)
         return ref.mamba_chunk_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
     y = torch.empty_like(x)
-    h_out = torch.empty_like(h0)
+    h_out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if y.numel() and leg == "cuda":
         _scan_launch(x, dt, a, b, c, h0, y, h_out, chunk, "mamba_chunk_scan")
     return y, h_out
@@ -689,7 +694,7 @@ def mamba_scan(
     from zero, the chunk combine ``H_init(c) = Decay(c-1) * H_init(c-1) +
     S_local(c-1)``, and the chunk scan from ``H_init``, all three in
     :func:`mamba_scan_route`'s one launch.  A sequence of one chunk is the
-    chunk scan from zero (:func:`mamba_chunk_scan`).  Differentiable
+    chunk scan from zero states (:func:`mamba_chunk_scan` without h0).  Differentiable
     (:class:`MambaScanFn`)."""
     if _needs_grad(x, dt, a, b, c):
         return MambaScanFn.apply(x, dt, a, b, c, chunk)
@@ -697,9 +702,7 @@ def mamba_scan(
 
 
 def _mamba_scan_forward(x, dt, a, b, c, chunk):
-    bsz, length, d = x.shape
-    if length > chunk:
+    if x.shape[1] > chunk:
         return mamba_scan_route(x, dt, a, b, c, chunk=chunk)
-    h_init = torch.zeros((bsz, 1, d, a.shape[1]), dtype=torch.float32, device=x.device)
-    y, h_fin = mamba_chunk_scan(x, dt, a, b, c, h_init, chunk=chunk)
+    y, h_fin = mamba_chunk_scan(x, dt, a, b, c, None, chunk=chunk)
     return y, h_fin[:, -1]

@@ -304,7 +304,9 @@ def mamba_chunk_scan_ref(
     ``h = exp(dt*a) * h + (dt*x) * b_t`` and ``y_t = sum_n h[:, n] * c_t[n]``
     summed in increasing n.  Returns ``(y, h_final)``: y (B, L, D) in x's
     dtype and each chunk's final state (B, n_chunks, D, N) float32.  Steps
-    past L (the last chunk's ragged end) leave the state unchanged.
+    past L (the last chunk's ragged end) leave the state unchanged, bit for
+    bit: a zero-padded step would add +0 to it, which turns a -0 state
+    into +0.
     """
     bsz, length, d = x.shape
     n = a.shape[1]
@@ -323,7 +325,8 @@ def mamba_chunk_scan_ref(
     ys = []
     for t in range(chunk):
         dt_t = dts[t][..., None]                          # (B, nc, D, 1)
-        h = torch.exp(dt_t * a) * h + (dts[t] * xs[t])[..., None] * bs[t][:, :, None, :]
+        h_t = torch.exp(dt_t * a) * h + (dts[t] * xs[t])[..., None] * bs[t][:, :, None, :]
+        h = h_t if t < chunk - pad else torch.cat([h_t[:, :-1], h[:, -1:]], dim=1)
         prod = h * cs[t][:, :, None, :]
         y = prod[..., 0]
         for k in range(1, n):

@@ -33,13 +33,15 @@ def flash_work(q, k, *, causal: bool, window: int) -> tuple[int, int]:
     return nbytes, 4 * d * hq * b * attn_pairs(sq, k.shape[2], causal, window)
 
 
-def scan_work(x, a, b, h0) -> tuple[int, int]:
-    """K7, the chunk scan: x, dt and y; B and C; a; h0 and h_out.  Per
-    (b, t, d, n) term seven float32 operations: dt*a, exp, decay*h,
-    (dt*x)*B, the add, h*C and the sum's add (dt*x is per (b, t, d))."""
+def scan_work(x, a, b, h0, *, chunk: int) -> tuple[int, int]:
+    """K7, the chunk scan: x, dt and y; B and C; a; h0 (none read where it
+    is None: zero states) and h_out.  Per (b, t, d, n) term seven float32
+    operations: dt*a, exp, decay*h, (dt*x)*B, the add, h*C and the sum's
+    add (dt*x is per (b, t, d))."""
     bsz, length, d = x.shape
+    states = bsz * (-(-length // chunk)) * d * a.shape[1]
     nbytes = (3 * x.numel() + 2 * b.numel()) * x.element_size() + a.numel() * 4 \
-        + 2 * h0.numel() * 4
+        + (states if h0 is None else states + h0.numel()) * 4
     return nbytes, 7 * bsz * length * d * a.shape[1] + bsz * length * d
 
 

@@ -249,7 +249,7 @@ def test_scan_and_matvec_routes_reach_their_c_entries(monkeypatch):
     """``mamba_scan`` over more than one chunk: one launch of the route's C
     entry on x, dt, a, b and c as they lie (rows of 16-byte multiples), y
     and the last state (B, D, N) out, x's rows as their stride; over one
-    chunk only the full launch of K7, from zeros.
+    chunk only the full launch of K7, from zero states (no h0 passed).
     ``maxplus_matmul`` at N = 1 is K2's C entry with G = 1 and N = 1, the
     matvec route inside it."""
     lib = _fake_lib(monkeypatch)
@@ -267,7 +267,7 @@ def test_scan_and_matvec_routes_reach_their_c_entries(monkeypatch):
     ops.mamba_scan(*(t[:, :16].contiguous() for t in (x, dt)), a,
                    *(t[:, :16].contiguous() for t in (b, c)), chunk=16)
     (entry, one, _), = lib.calls
-    assert entry == "mamba_chunk_scan" and one[5] is not None and one[6] is not None
+    assert entry == "mamba_chunk_scan" and one[5] is None and one[6] is not None
     lib.calls.clear()
     m = torch.zeros((150, 150))
     out = ops.maxplus_matmul(m, torch.zeros((150, 1)))
@@ -869,6 +869,78 @@ def test_mamba_states_and_combine_on_the_card(case, dtype):
     assert ops.LAUNCHES["mamba_chunk_combine"] == before + 1
     assert torch.equal(h_init[:, 0], torch.zeros_like(h_init[:, 0]))
     assert tref.state_excess(h_init, tref.mamba_combine_ref(dt, a, states, chunk=chunk)) <= 1.0
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (-0 is not +0), float32 or bf16."""
+    as_int = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
+
+
+#: K7's body at one chunk and from given states: (b, length, d, n, chunk,
+#: chunks of a random h0 or None for zero states, edge values: -0 in x and
+#: decays that underflow to subnormals and to 0).  At N = 16 a channel takes
+#: two lanes where the grid is small, one where it is large (b17, k1).
+K7_CASES = {
+    "l1_d8_n8": (1, 1, 8, 8, 128, None, False),
+    "l5_d130": (3, 5, 130, 16, 128, None, True),
+    "l16_d8192": (2, 16, 8192, 16, 16, None, False),
+    "l31_d130_n8": (5, 31, 130, 8, 32, None, True),
+    "l32_d8192_b8": (8, 32, 8192, 16, 128, None, False),
+    "l128_d130_b32": (32, 128, 130, 16, 128, None, True),
+    "h0_one_chunk": (2, 32, 130, 16, 128, 1, True),
+    "h0_two_chunks_n8": (3, 31, 8192, 8, 16, 2, False),
+    "h0_four_chunks": (1, 128, 8192, 16, 32, 4, True),
+    "h0_four_ragged_n8": (2, 100, 8, 8, 32, 4, True),
+    "l128_d8192_b17": (17, 128, 8192, 16, 128, None, False),
+    "h0_four_ragged_k1": (5, 100, 8192, 16, 32, 4, True),
+}
+
+
+@pytest.mark.cuda
+def test_k7_cases_take_one_and_two_lanes_a_channel_on_the_card():
+    _need_cuda()
+    lanes = _build.library("mamba_scan").mamba_chunk_scan_lanes
+    taken = {case: lanes(b, length, d, n, chunk)
+             for case, (b, length, d, n, chunk, *_) in K7_CASES.items()}
+    assert {v for case, v in taken.items() if K7_CASES[case][3] == 16} == {1, 2}, taken
+    assert {v for case, v in taken.items() if K7_CASES[case][3] == 8} == {1}, taken
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_bit_identical_to_its_plain_version_and_the_route_on_the_card(case, dtype):
+    """K7's full and states-only launches, from zero states (no h0 read)
+    and from given ones, equal the plain version bit for bit; at one chunk
+    from zero ``mamba_scan`` (K7) and the route's one launch equal it too."""
+    dev = _need_cuda()
+    b, length, d, n, chunk, h0_chunks, edges = K7_CASES[case]
+    assert h0_chunks in (None, -(-length // chunk))
+    x, dt, a, bm, cm, h0 = _scan_args(b, length, d, n, dtype, dev, chunk, seed=5 * length + d,
+                                      h0_scale=1.0)
+    if edges:
+        x.view(-1)[::7] = -0.0
+        a.view(-1)[::5] = -1e4
+    start = None if h0_chunks is None else h0
+    before = dict(ops.LAUNCHES)
+    y, h = ops.mamba_chunk_scan(x, dt, a, bm, cm, start, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]} \
+        == {"mamba_chunk_scan": 1}
+    plain_y, plain_h = tref.mamba_chunk_scan_ref(
+        x, dt, a, bm, cm, torch.zeros_like(h0) if start is None else h0, chunk=chunk)
+    assert _same_bits(y, plain_y) and _same_bits(h, plain_h)
+    states = torch.empty_like(h)
+    ops._scan_launch(x, dt, a, bm, None, start, None, states, chunk, "mamba_chunk_states")
+    torch.cuda.synchronize()
+    assert _same_bits(states, h)
+    if start is None:
+        assert _same_bits(ops.mamba_chunk_states(x, dt, a, bm, chunk=chunk), h)
+    if start is None and length <= chunk:
+        for sy, sh in (ops.mamba_scan(x, dt, a, bm, cm, chunk=chunk),
+                       ops.mamba_scan_route(x, dt, a, bm, cm, chunk=chunk)):
+            assert _same_bits(sy, y) and _same_bits(sh, h[:, -1])
 
 
 #: the route's own cases beside SCAN_CASES: 32 chunks, two batch rows at

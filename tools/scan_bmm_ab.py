@@ -1,44 +1,49 @@
-"""Side-by-side timing of K7 (the chunked Mamba scan), K2/K4 (the (max,+)
-products) and spike_input on one GPU: the K7 and K2 bodies before their
-redesign, kept in ``tools/pr15_kernels/``, against the package's ``csrc/``
-sources and their named variants (each a one-line edit), in turns.
+"""Side-by-side timing of K7 (the Mamba chunk scan), the scan's route,
+K2/K4 (the (max,+) products) and spike_input on one GPU: bodies before
+their redesign, kept in ``tools/pr25_kernels/`` (K7) and
+``tools/pr15_kernels/`` (K2), against the package's ``csrc/`` sources and
+their named variants (edits of the source), in turns.
 
-K7, at jamba's largest call (bf16, (1, 32768, 8192), N = 16, chunk 128) on
-the inputs of its first Mamba layer (init_mamba's weights from seed 0 at
-full width, a standard normal input): the old full launch and the new one
-(both must equal the plain version bit for bit); in each variant
-(``K7_VARIANTS``) the states-only launch (equal to the full launch's
-states from zero) and the full launch, with their tolerance ratios against
-the plain version, and the whole scan with that variant's states pass and
-the package's combine and full launch (the route's y and state ratios
-against the plain route); the combine against its plain loop; and the
-whole scan by the old route (K7, the plain combine, K7) against the new
-one (states, combine, K7).
+K7 (``--k7``) at the calls of ``K7_SHAPES`` (``--k7-shape``), each on the
+inputs of jamba's first Mamba layer (init_mamba's weights from seed 0 at
+full width, a standard normal input): jamba_serve's one-chunk prefill step
+(float32, (8, 32, 8192), from zero states), a bf16 one-chunk call of 32
+prompts (32, 128, 8192) from zero, and the direct 32k call (bf16, (1,
+32768, 8192), chunk 128) from the combined states.  The body before the
+redesign (``old``: ``tools/pr25_kernels/mamba_scan.cu``) must equal the
+plain version bit for bit, and every variant of ``K7_VARIANTS`` (``diag_``
+ones aside: wrong results, timed only) the old body: y and the states of
+the full launch, and the states-only launch's states.  At a call of one chunk the route
+(``mamba_scan_route`` from zero) is timed beside them as a yardstick and
+must equal the old body too.  Each variant's line also has its registers
+and spills (``-Xptxas -v``), the warps an SM holds at those registers and
+the grid's warps an SM, and the SASS instructions a term of its hot loop
+(``cuobjdump -sass``, ``_build.sass_per_term``).
 
-With ``--route`` only the scan's route runs, on the same inputs: the
+With ``--route`` only the scan's route runs, on the 32k call's inputs: the
 three launches it replaced (the package's states pass, combine and K7)
 against the one walk (``mamba_scan_route``) of each variant in
 ``ROUTE_VARIANTS`` (named edits of the walk's thread layout, tile and ring
 constants), in turns; each variant's y and last state must equal the
 three launches' bit for bit.  Each variant is also compiled to a cubin
-with its cold paths cut (``ROUTE_PROBE``) and ``cuobjdump -sass`` counts the
-instructions of the innermost loop that holds MUFU.EX2 per MUFU.EX2, one
-a term: the route's instructions a term beside K7's and its states
-pass's (the three launches' sum).
+with its cold paths cut (``ROUTE_PROBE``) for its SASS instructions a term
+beside K7's and its states pass's.
 
-K2 at the dense path's (64, 192, 192)^2 and K4's (150, 150) x (150, 1):
-old and new in each variant (``K2_VARIANTS``), each bit-identical to the
-plain version.  spike_input at HeartClass's synapses against its plain
-version on the card.
+K2 (``--k2``, none with ``--k2 ''``) at the dense path's (64, 192, 192)^2
+and K4's (150, 150) x (150, 1): old and new in each variant
+(``K2_VARIANTS``), each bit-identical to the plain version; then
+spike_input at HeartClass's synapses against its plain version on the
+card.
 
 Run from the repository root on a machine with the card:
 
-    python3 tools/scan_bmm_ab.py --k7 base,ex2,noexp --k2 base,m8n8
+    python3 tools/scan_bmm_ab.py --k2 '' --k7 base,g8,g16,share --k7-shape path,p32x128,direct32k
+    python3 tools/scan_bmm_ab.py --k7 '' --k2 base,m8n8
     python3 tools/scan_bmm_ab.py --route base,g2,g8,rt32
 
 One JSON line per measurement, each with the card's name and power limit.
 It exits non-zero if a kernel does not build or differs from its plain
-version beyond its limit.
+version or the old body.
 """
 
 from __future__ import annotations
@@ -62,27 +67,85 @@ sys.path.insert(0, str(ROOT / "tools"))
 from relax_lif_ab import in_turns  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import apps, lif  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ref, work  # noqa: E402
 from repro_torch.models import mamba as tmamba  # noqa: E402
 
-OLD = ROOT / "tools" / "pr15_kernels"
+OLD_K7 = ROOT / "tools" / "pr25_kernels" / "mamba_scan.cu"
+OLD_K2 = ROOT / "tools" / "pr15_kernels" / "maxplus_matmul.cu"
 OUT = ROOT / "build" / "repro_torch_kernels" / "scan_bmm_ab"
 
-#: name -> (old, new) replacements in csrc/mamba_scan.cu
+#: the line of csrc/mamba_scan.cu that chooses K7's lanes a channel
+K7_CHOICE = "  return channels < (int64_t)K7_FILL * 32 * sms ? 2 : 1;"
+#: name -> (old, new) replacements in csrc/mamba_scan.cu: K7's layout
+#: (lanes a channel, fixed: G = N / lanes states a lane; the fill below which
+#: a channel takes two lanes; threads a block), how a lane gets its step's dt
+#: and x, and how the main loop is unrolled; a variant "a+b" applies both;
+#: "diag_" variants give wrong results and are only timed
 K7_VARIANTS = {
     "base": [],
-    # the decay as exp2(dt * a*log2(e)) by ex2.approx (one MUFU.EX2), the
-    # state updated by one FMA: the cheaper exponential that was given up
-    "ex2": [("    av[n] = a[(int64_t)d * N + n];",
-             "    av[n] = __fmul_rn(a[(int64_t)d * N + n], 1.4426950408889634f);"),
-            ("      const float decay = expf(__fmul_rn(dtt, av[n]));\n"
-             "      h[n] = __fadd_rn(__fmul_rn(decay, h[n]), __fmul_rn(dtx, bt[n]));",
-             "      float decay;\n"
-             "      asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(decay) : \"f\"(__fmul_rn(dtt, av[n])));\n"
-             "      h[n] = __fmaf_rn(decay, h[n], __fmul_rn(dtx, bt[n]));")],
-    # no exponential at all (wrong results): what the rest of a term costs
-    "noexp": [("const float decay = expf(__fmul_rn(dtt, av[n]));",
-               "const float decay = __fmul_rn(dtt, av[n]);")],
+    # (a) at a fixed G: 16 (one lane a channel), 8 or 4 states a lane
+    "g16": [(K7_CHOICE, "  return 1;")],
+    "g8": [(K7_CHOICE, "  return 2;")],
+    "g4": [(K7_CHOICE, "  return 4;"),
+           ("  if constexpr (N >= 16)\n    if (k == 2)\n",
+            "  if (k == 4)\n    return launch_lanes<N, 4, T, WRITE_Y>(x, dt, a, bm, cm, h0, y, "
+            "hout, Bt, L, D, chunk, smem, stream);\n  if constexpr (N >= 16)\n    if (k == 2)\n")],
+    **{f"fill{f}": [("constexpr int K7_FILL = 32;", f"constexpr int K7_FILL = {f};")]
+       for f in (16, 64)},
+    # (b): a channel's lane 0 reads dt and x; lane g takes the ones lane
+    # g - 1 used the iteration before (in step: lane 0's own) by shuffles
+    "share": [
+        ("  float carry = -0.0f;   // the partial y sum this lane passed on last\n",
+         "  float carry = -0.0f;   // the partial y sum this lane passed on last\n"
+         "  const bool loads = K == 1 || g == 0;\n"
+         "  float pdt = 0.0f, pdtx = 0.0f;\n"
+         "  auto share = [&](float& dtt, float& dtx) {\n"
+         "    if constexpr (K > 1) {\n"
+         "      const float sdt = LAG ? __shfl_up_sync(mask, pdt, 1, K) : __shfl_sync(mask, dtt, 0, K);\n"
+         "      const float sdtx = LAG ? __shfl_up_sync(mask, pdtx, 1, K) : __shfl_sync(mask, dtx, 0, K);\n"
+         "      if (g > 0) dtt = sdt, dtx = sdtx;\n"
+         "      pdt = dtt, pdtx = dtx;\n"
+         "    }\n"
+         "  };\n"),
+        ("    if (act) {\n"
+         "      const float dtt = to_f(dt[row + (int64_t)t * D]);\n"
+         "      terms(smem + t * BC, dtt, __fmul_rn(dtt, to_f(x[row + (int64_t)t * D])), in,\n"
+         "            y + row + (int64_t)t * D);\n"
+         "    }",
+         "    float dtt = 0.0f, dtx = 0.0f;\n"
+         "    if (act && loads) {\n"
+         "      dtt = to_f(dt[row + (int64_t)t * D]);\n"
+         "      dtx = __fmul_rn(dtt, to_f(x[row + (int64_t)t * D]));\n"
+         "    }\n"
+         "    share(dtt, dtx);\n"
+         "    if (act) terms(smem + t * BC, dtt, dtx, in, y + row + (int64_t)t * D);"),
+        ("    T ndt = *dq, nx = *xq;", "    T ndt{}, nx{};\n    if (loads) ndt = *dq, nx = *xq;"),
+        ("      if (decltype(ahead)::value) ndt = dq[D], nx = xq[D];",
+         "      if (decltype(ahead)::value && loads) ndt = dq[D], nx = xq[D];"),
+        ("      const float dtt = to_f(cdt);\n      const float dtx = __fmul_rn(dtt, to_f(cx));",
+         "      float dtt = to_f(cdt);\n      float dtx = __fmul_rn(dtt, to_f(cx));\n"
+         "      share(dtt, dtx);"),
+    ],
+    # no read ahead: each step's dt and x read at the step
+    "noahead": [("      const T cdt = ndt, cx = nx;\n"
+                 "      if (decltype(ahead)::value) ndt = dq[D], nx = xq[D];",
+                 "      const T cdt = *dq, cx = *xq;")],
+    **{f"t{t}": [("constexpr int K7_THREADS = 128;", f"constexpr int K7_THREADS = {t};")]
+       for t in (64, 256)},
+    # steps a main-loop pass where a channel takes 2 lanes (one lane: no unrolling)
+    **{f"u{u}": [("constexpr int K7_UNROLL = 2;", f"constexpr int K7_UNROLL = {u};")]
+       for u in (1, 4)},
+    # no exponential: what the rest of a term costs
+    "diag_noexp": [("const float decay = expf(__fmul_rn(dtt, av[n]));",
+                    "const float decay = __fmul_rn(dtt, av[n]);")],
+}
+#: K7's calls: name -> (batch, tokens, dtype, start); "zero": no h0 (the
+#: package's one-chunk scan), "combined": the states combined from the
+#: states pass (the three launches' last)
+K7_SHAPES = {
+    "path": (8, 32, torch.float32, "zero"),          # jamba_serve's prefill step
+    "p32x128": (32, 128, torch.bfloat16, "zero"),    # 32 prompts of one chunk
+    "direct32k": (1, 32768, torch.bfloat16, "combined"),
 }
 #: name -> (old, new) replacements in csrc/mamba_scan.cu: the route's layout
 #: (states a thread, so warps a block), steps a tile and ring stages; a
@@ -116,8 +179,8 @@ ROUTE_PROBE = [("      if (aligned && (tile + 1) * RT <= L)", "      if (true)")
                ("      if (tile * RT == next_start) start_chunk();",
                 "      if (false) start_chunk();")]
 #: the kernels whose SASS is counted: (label, substrings of the mangled name)
-SASS_KERNELS = (("k7_full", ("mamba_chunk_scan_kernelILi16E13__nv_bfloat16Lb1E",)),
-                ("k7_states", ("mamba_chunk_scan_kernelILi16E13__nv_bfloat16Lb0E",)),
+SASS_KERNELS = (("k7_full", ("mamba_chunk_scan_kernelILi16ELi1E13__nv_bfloat16Lb1E",)),
+                ("k7_states", ("mamba_chunk_scan_kernelILi16ELi1E13__nv_bfloat16Lb0E",)),
                 ("route", ("mamba_scan_route_kernelILi16E", "13__nv_bfloat16")))
 
 #: name -> (old, new) replacements in csrc/maxplus_matmul.cu
@@ -150,8 +213,8 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"scan_bmm_ab: FAILED: {msg}")
 
 
-def route_edits(name: str) -> list:
-    return [e for part in name.split("+") for e in ROUTE_VARIANTS[part]]
+def edits(table: dict, name: str) -> list:
+    return [e for part in name.split("+") for e in table[part]]
 
 
 def _variant(source: str, edits) -> str:
@@ -162,7 +225,7 @@ def _variant(source: str, edits) -> str:
     return source
 
 
-def build(k7: list[str], k2: list[str], route: list[str] = ()) -> dict[str, ctypes.CDLL]:
+def build(k7: list[str], k2: list[str], route: list[str]) -> dict[str, ctypes.CDLL]:
     """Libraries ``scan_old``, ``bmm_old``, ``spike_base`` and
     ``<kernel>_<variant>``, or with ``route`` only ``route_<variant>``, built
     in parallel; each route variant's probe is compiled to a cubin beside
@@ -170,13 +233,19 @@ def build(k7: list[str], k2: list[str], route: list[str] = ()) -> dict[str, ctyp
     src = {stem: (_build.CSRC / f"{stem}.cu").read_text()
            for stem in ("mamba_scan", "maxplus_matmul", "spike_input")}
     if route:
-        jobs = {f"route_{n}": _variant(src["mamba_scan"], route_edits(n)) for n in route}
+        jobs = {f"route_{n}": _variant(src["mamba_scan"], edits(ROUTE_VARIANTS, n))
+                for n in route}
     else:
-        jobs = {"scan_old": (OLD / "mamba_scan.cu").read_text(),
-                "bmm_old": (OLD / "maxplus_matmul.cu").read_text(),
-                **{f"scan_{n}": _variant(src["mamba_scan"], K7_VARIANTS[n]) for n in k7},
-                **{f"bmm_{n}": _variant(src["maxplus_matmul"], K2_VARIANTS[n]) for n in k2},
-                "spike_base": src["spike_input"]}
+        jobs = {}
+        if k7:
+            jobs.update({"scan_old": OLD_K7.read_text(),
+                         **{f"scan_{n}": _variant(src["mamba_scan"], edits(K7_VARIANTS, n))
+                            for n in k7}})
+        if k2:
+            jobs.update({"bmm_old": OLD_K2.read_text(),
+                         **{f"bmm_{n}": _variant(src["maxplus_matmul"], K2_VARIANTS[n])
+                            for n in k2},
+                         "spike_base": src["spike_input"]})
     procs = {}
     cubin_flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     for name, text in jobs.items():
@@ -201,8 +270,8 @@ def build(k7: list[str], k2: list[str], route: list[str] = ()) -> dict[str, ctyp
             raise SystemExit(f"{name} does not build:\n{out}")
         if name.endswith("/probe"):
             continue
-        emit({"build": name, "ptxas": [ln.strip() for ln in out.splitlines()
-                                       if "registers" in ln or "spill" in ln or "Compiling" in ln]})
+        PTXAS[name] = ptxas_usage(out)
+        emit({"build": name, "ptxas": PTXAS[name]})
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         kind = name.split("_")[0]
         stem = {"scan": "mamba_scan", "route": "mamba_scan", "bmm": "maxplus_matmul",
@@ -212,6 +281,29 @@ def build(k7: list[str], k2: list[str], route: list[str] = ()) -> dict[str, ctyp
                 getattr(lib, fn).argtypes = argtypes
         libs[name] = lib
     return libs
+
+
+#: library -> {mangled kernel: {"registers", "spill_stores", "spill_loads",
+#: "smem"}} from its ``-Xptxas -v`` output
+PTXAS: dict = {}
+
+
+def ptxas_usage(text: str) -> dict:
+    """Registers, spills (bytes) and static shared memory of each kernel
+    ``-Xptxas -v`` reports."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if name and m:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if name and m:
+            usage[name].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return usage
 
 
 def stream() -> int:
@@ -245,13 +337,14 @@ def combine_call(lib, dt, a, s_local, chunk=128):
     return h
 
 
-def scan_inputs(seq: int):
-    """x, dt, a, B, C of jamba's first Mamba layer at ``seq`` tokens, bf16."""
+def scan_inputs(batch: int, seq: int, dtype=torch.bfloat16):
+    """x, dt, a, B, C and the chunk of jamba's first Mamba layer at (batch,
+    seq) tokens in ``dtype``."""
     dev = torch.device("cuda")
     cfg = get_arch("jamba-v0.1-52b")
     gen = torch.Generator(device=dev).manual_seed(0)
-    p = tmamba.init_mamba(gen, cfg, dtype=torch.bfloat16)
-    h = torch.randn((1, seq, cfg.d_model), generator=gen, device=dev).bfloat16()
+    p = tmamba.init_mamba(gen, cfg, dtype=dtype)
+    h = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev).to(dtype)
     with torch.no_grad():
         u, _ = torch.matmul(h, p["w_in"]).chunk(2, dim=-1)
         u, _ = tmamba._causal_conv(p, u)
@@ -259,67 +352,108 @@ def scan_inputs(seq: int):
     return u.contiguous(), dt.contiguous(), a, bm.contiguous(), cm.contiguous(), cfg.mamba_chunk
 
 
-def k7(libs, variants, smi, seq):
-    x, dt, a, b, c, chunk = scan_inputs(seq)
-    zeros = torch.zeros((1, -(-seq // chunk), x.shape[2], a.shape[1]), device=x.device)
-    plain_s = ref.mamba_chunk_scan_ref(x, dt, a, b, c, zeros, chunk=chunk)[1]
-    h_init = ref.mamba_combine_ref(dt, a, plain_s, chunk=chunk)
-    plain_y, plain_h = ref.mamba_chunk_scan_ref(x, dt, a, b, c, h_init, chunk=chunk)
-    old, base = libs["scan_old"], libs["scan_base"]
-    for name, lib in (("old", old), ("new", base)):
-        ky, kh = scan_call(lib, x, dt, a, b, c, h_init, chunk=chunk)
-        check(torch.equal(ky, plain_y) and torch.equal(kh, plain_h), f"{name} K7 differs from plain")
-    del ky, kh
+def k7_threads(name: str) -> int:
+    """Threads a block of K7 variant ``name``'s source."""
+    text = (OUT / f"scan_{name}" / "k.cu").read_text()
+    return int(re.search(r"constexpr int K7_THREADS = (\d+);", text).group(1))
 
-    def route(states_lib):
-        """The whole scan: ``states_lib``'s states pass, the package's combine and K7."""
-        s = scan_call(states_lib, x, dt, a, b, None, None, y=False, chunk=chunk)[1]
-        return scan_call(base, x, dt, a, b, c, combine_call(base, dt, a, s, chunk), chunk=chunk)
 
-    row = {"kernel": "mamba_chunk_scan", "shape": [*x.shape, a.shape[1]], "chunk": chunk,
-           "terms": x.numel() * a.shape[1],
-           "dt_a_abs_max": float((dt.float().amax() * a.abs().amax())), "nvidia_smi": smi}
-    fns = {"old_full": lambda: scan_call(old, x, dt, a, b, c, h_init, chunk=chunk)}
-    for v in variants:
-        lib = libs[f"scan_{v}"]
-        st = scan_call(lib, x, dt, a, b, None, None, y=False, chunk=chunk)[1]
-        row[f"{v}_states_equal_full"] = bool(torch.equal(
-            st, scan_call(lib, x, dt, a, b, c, zeros, chunk=chunk)[1]))
-        fns[f"{v}_states"] = lambda lib=lib: scan_call(lib, x, dt, a, b, None, None, y=False,
-                                                       chunk=chunk)
-        fns[f"{v}_full"] = lambda lib=lib: scan_call(lib, x, dt, a, b, c, h_init, chunk=chunk)
-        if v == "noexp":   # wrong results, timed only
-            continue
-        fy, fh = scan_call(lib, x, dt, a, b, c, h_init, chunk=chunk)
-        ry, rh = route(lib)
-        row.update({f"{v}_states_tol_ratio": ref.state_excess(st, plain_s),
-                    f"{v}_full_y_tol_ratio": ref.scan_excess(fy, plain_y, chunk),
-                    f"{v}_full_state_tol_ratio": ref.state_excess(fh, plain_h),
-                    f"{v}_route_y_tol_ratio": ref.scan_excess(ry, plain_y, chunk),
-                    f"{v}_route_state_tol_ratio": ref.state_excess(rh, plain_h)})
-        del st, fy, fh, ry, rh
-    check(row["base_states_equal_full"] and row["base_states_tol_ratio"] == 0.0,
-          "the states-only launch differs from the plain states")
-    check(max(row["base_route_y_tol_ratio"], row["base_route_state_tol_ratio"]) <= 1.0,
-          "the new route lies beyond SCAN_TOL of the plain route")
-    row["ms_in_turns"] = in_turns(fns)
-    emit(row)
-    # the combine, and the whole scan by either route
-    kc = combine_call(base, dt, a, plain_s, chunk)
-    combine = {"kernel": "mamba_chunk_combine", "tol_ratio": ref.state_excess(kc, h_init),
-               "equals_plain": bool(torch.equal(kc, h_init)), "nvidia_smi": smi}
-    del kc
+def k7_kernel(n: int, lanes: int | None, dtype, write_y: bool = True) -> str:
+    """The part of K7's mangled name that tells its instantiation apart
+    (``lanes`` None: the old body, which has no lanes parameter)."""
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    return (f"mamba_chunk_scan_kernelILi{n}E" + ("" if lanes is None else f"Li{lanes}E")
+            + f"{t}Lb{int(write_y)}E")
 
-    def old_route():
-        s = scan_call(old, x, dt, a, b, c, zeros, chunk=chunk)[1]
-        return scan_call(old, x, dt, a, b, c, ref.mamba_combine_ref(dt, a, s, chunk=chunk),
-                         chunk=chunk)
 
-    combine["ms_in_turns"] = in_turns({
-        "plain_combine": lambda: ref.mamba_combine_ref(dt, a, plain_s, chunk=chunk),
-        "combine": lambda: combine_call(base, dt, a, plain_s, chunk),
-        "old_route": old_route, "new_route": lambda: route(base)})
-    emit(combine)
+def warps_an_sm(usage: dict, threads: int, smem: int) -> int:
+    """Warps an H100 SM holds of a kernel with ptxas ``usage`` in blocks of
+    ``threads`` with ``smem`` bytes of dynamic shared memory: 65,536
+    registers (256 a warp at a time), 64 warps, 32 blocks, 228 KB of shared
+    memory (1 KB of it a block's own)."""
+    warp_regs = -(-usage["registers"] * 32 // 256) * 256
+    per_block = threads // 32
+    blocks = min(32, 64 // per_block, 65536 // (warp_regs * per_block),
+                 233472 // (smem + usage.get("smem", 0) + 1024))
+    return blocks * per_block
+
+
+def k7(libs, variants, shapes, smi):
+    """The old body, the variants and (at one chunk) the route, in turns at
+    each call of ``shapes``; every variant equal to the old body."""
+    issue_rate = 132 * 4 * 32 * 1.98e9       # thread-instructions a second
+    all_equal = True
+    for shape in shapes:
+        batch, seq, dtype, start = K7_SHAPES[shape]
+        x, dt, a, b, c, chunk = scan_inputs(batch, seq, dtype)
+        seq, d, n = x.shape[1], x.shape[2], a.shape[1]
+        nc = -(-seq // chunk)
+        zeros = torch.zeros((batch, nc, d, n), device=x.device)
+        h0 = None
+        if start == "combined":
+            s = ref.mamba_chunk_scan_ref(x, dt, a, b, c, zeros, chunk=chunk)[1]
+            h0 = ref.mamba_combine_ref(dt, a, s, chunk=chunk)
+            del s
+        plain_y, plain_h = ref.mamba_chunk_scan_ref(x, dt, a, b, c,
+                                                    zeros if h0 is None else h0, chunk=chunk)
+        del zeros
+        old = libs["scan_old"]
+        oy, oh = scan_call(old, x, dt, a, b, c, h0, chunk=chunk)
+        os_ = scan_call(old, x, dt, a, b, None, h0, y=False, chunk=chunk)[1]
+        check(torch.equal(oy, plain_y) and torch.equal(oh, plain_h),
+              f"the old K7 differs from its plain version at {shape}")
+        check(torch.equal(os_, oh), f"the old states-only launch differs at {shape}")
+        del plain_y, plain_h
+        terms = x.numel() * n
+        nbytes, flops = work.scan_work(x, a, b, h0, chunk=chunk)
+        row = {"kernel": "mamba_chunk_scan", "call": shape, "shape": [*x.shape, n],
+               "dtype": str(dtype).split(".")[-1], "start": start, "chunk": chunk,
+               "terms": terms, "nvidia_smi": smi,
+               "bound_ms": 1e3 * max(nbytes / 3.35e12, flops / 67e12),
+               "bound_by": "bytes" if nbytes / 3.35e12 >= flops / 67e12 else "operations",
+               "expf_bound_ms": 1e3 * terms / (132 * 16 * 1.98e9)}
+        fns = {"old": lambda: scan_call(old, x, dt, a, b, c, h0, chunk=chunk)}
+        smem = 2 * min(chunk, seq) * n * 4
+        for v in ["old", *variants]:
+            lib_dir = OUT / f"scan_{v}"
+            lanes = None if v == "old" else libs[f"scan_{v}"].mamba_chunk_scan_lanes(
+                batch, seq, d, n, chunk)
+            kernel = k7_kernel(n, lanes, dtype)
+            sass = _build.sass_per_term(lib_dir / "lib.so", (("k7", (kernel,)),))["k7"]
+            usage = next(u for f, u in PTXAS[lib_dir.name].items() if kernel in f)
+            threads = 128 if v == "old" else k7_threads(v)
+            blocks = -(-d // (threads // (lanes or 1))) * nc * batch
+            info = {"lanes": lanes or 1, "registers": usage.get("registers"),
+                    "spill_bytes": usage.get("spill_stores", 0) + usage.get("spill_loads", 0),
+                    "warps_an_sm": warps_an_sm(usage, threads, smem),
+                    "grid_warps_an_sm": blocks * threads / 32 / 132, "sass": sass}
+            per_term = sass.get("instructions_a_term")
+            info["issue_floor_ms"] = 1e3 * per_term * terms / issue_rate if per_term else None
+            row[v] = info
+            if v == "old":
+                continue
+            lib = libs[f"scan_{v}"]
+            fns[v] = lambda lib=lib: scan_call(lib, x, dt, a, b, c, h0, chunk=chunk)
+            if v.startswith("diag_"):
+                continue
+            vy, vh = scan_call(lib, x, dt, a, b, c, h0, chunk=chunk)
+            vs = scan_call(lib, x, dt, a, b, None, h0, y=False, chunk=chunk)[1]
+            info["equals_old"] = bool(torch.equal(vy, oy) and torch.equal(vh, oh)
+                                       and torch.equal(vs, os_))
+            all_equal &= info["equals_old"]
+            del vy, vh, vs
+        if seq <= chunk:   # the route from zero over one chunk: a yardstick
+            route = libs[f"scan_{variants[0]}"]
+            ry, rh = route_call(route, x, dt, a, b, c, chunk)
+            row["route_equals_old"] = bool(torch.equal(ry, oy) and torch.equal(rh, oh[:, -1]))
+            all_equal &= row["route_equals_old"]
+            fns["route"] = lambda: route_call(route, x, dt, a, b, c, chunk)
+            del ry, rh
+        del oy, oh, os_
+        row["ms_in_turns"] = in_turns(fns)
+        emit(row)
+        del x, dt, b, c, h0
+    check(all_equal, "a K7 variant or the route differs from the old body")
 
 
 # ------------------------------------------------------------- the route
@@ -337,48 +471,8 @@ def route_call(lib, x, dt, a, b, c, chunk=128):
     return y, h
 
 
-def sass_per_term(cubin: pathlib.Path) -> dict:
-    """Per kernel of ``SASS_KERNELS`` in ``cubin``: the instructions (NOPs
-    left out) of the innermost loop that holds MUFU.EX2, the MUFU.EX2 among
-    them (one a term), and their quotient."""
-    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
-                          text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            funcs[name] = []
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if name is not None and m:
-            funcs[name].append((int(m.group(1), 16), m.group(2)))
-    out = {}
-    for label, parts in SASS_KERNELS:
-        found = [f for f in funcs if all(p in f for p in parts)]
-        if len(found) != 1:
-            out[label] = {"error": f"{len(found)} functions match {parts}"}
-            continue
-        ins = funcs[found[0]]
-        loops = []
-        for addr, op in ins:
-            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
-            if m and int(m.group(1), 16) < addr:
-                body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr
-                        and not o.split()[0].startswith("NOP")]
-                mufu = sum("MUFU.EX2" in o for o in body)
-                if mufu:
-                    loops.append((len(body), mufu))
-        if not loops:
-            out[label] = {"error": "no loop holds MUFU.EX2"}
-            continue
-        n_ins, mufu = min(loops)
-        out[label] = {"loop_instructions": n_ins, "mufu_ex2": mufu,
-                      "instructions_a_term": n_ins / mufu}
-    return out
-
-
 def route_ab(libs, variants, smi, seq):
-    x, dt, a, b, c, chunk = scan_inputs(seq)
+    x, dt, a, b, c, chunk = scan_inputs(1, seq)
     base = libs["route_base"]
 
     def three():
@@ -396,7 +490,8 @@ def route_ab(libs, variants, smi, seq):
     for v in variants:
         lib = libs[f"route_{v}"]
         y, h = route_call(lib, x, dt, a, b, c, chunk)
-        row[f"{v}_sass"] = sass_per_term(OUT / f"route_{v}" / "probe.cubin")
+        row[f"{v}_sass"] = _build.sass_per_term(OUT / f"route_{v}" / "probe.cubin",
+                                               SASS_KERNELS)
         fns[v] = lambda lib=lib: route_call(lib, x, dt, a, b, c, chunk)
         if "diag_" in v:
             continue
@@ -473,29 +568,38 @@ def spike(libs, smi):
 
 def main(argv: list[str]) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k7", default="base", help="comma-separated K7_VARIANTS")
-    ap.add_argument("--k2", default="base", help="comma-separated K2_VARIANTS")
+    ap.add_argument("--k7", default="base", help="comma-separated K7_VARIANTS ('' for none)")
+    ap.add_argument("--k7-shape", default=",".join(K7_SHAPES),
+                    help=f"comma-separated K7 calls of {sorted(K7_SHAPES)}")
+    ap.add_argument("--k2", default="base",
+                    help="comma-separated K2_VARIANTS ('' for none, nor spike_input)")
     ap.add_argument("--route", default="",
                     help="comma-separated ROUTE_VARIANTS: run the route's section alone")
-    ap.add_argument("--seq", type=int, default=32768, help="K7's tokens (jamba's prefill_32k)")
+    ap.add_argument("--seq", type=int, default=32768, help="the route's tokens (prefill_32k)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     # base first: the other variants are held against it
-    k7_v, k2_v, route_v = (["base"] + [v for v in a.split(",") if v != "base"]
+    k7_v, k2_v, route_v = (["base"] + [v for v in a.split(",") if v and v != "base"] if a else []
                            for a in (args.k7, args.k2, args.route))
+    shapes = [sh for sh in args.k7_shape.split(",") if sh]
+    unknown = [sh for sh in shapes if sh not in K7_SHAPES]
+    if unknown:
+        raise SystemExit(f"unknown --k7-shape {unknown}; known: {sorted(K7_SHAPES)}")
     t0 = time.perf_counter()
-    libs = build(k7_v, k2_v, route_v if args.route else ())
+    libs = build(k7_v, k2_v, route_v)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     emit({"phase": "build", "s": time.perf_counter() - t0, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi})
-    if args.route:
+    if route_v:
         route_ab(libs, route_v, smi, args.seq)
         return
-    k2(libs, k2_v, smi)
-    spike(libs, smi)
-    k7(libs, k7_v, smi, args.seq)
+    if k2_v:
+        k2(libs, k2_v, smi)
+        spike(libs, smi)
+    if k7_v:
+        k7(libs, k7_v, shapes, smi)
 
 
 if __name__ == "__main__":
