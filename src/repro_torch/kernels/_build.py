@@ -20,7 +20,6 @@ import re
 import shutil
 import subprocess
 import threading
-import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -84,8 +83,6 @@ SIGNATURES = {
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-#: wall seconds the last build_all() spent compiling and loading
-BUILD_SECONDS = 0.0
 
 
 def nvcc_path() -> str:
@@ -120,11 +117,9 @@ def _lib_path(stem: str) -> pathlib.Path:
 
 def build_all() -> dict[str, ctypes.CDLL]:
     """Compile every missing library in parallel, then load them all."""
-    global BUILD_SECONDS
     with _LOCK:
         if len(_LIBS) == len(SIGNATURES):
             return _LIBS
-        t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         todo = [s for s in SIGNATURES if not _lib_path(s).is_file()]
         if todo:
@@ -152,7 +147,6 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
             _LIBS[stem] = lib
-        BUILD_SECONDS = time.perf_counter() - t0
         return _LIBS
 
 

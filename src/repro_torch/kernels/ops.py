@@ -26,11 +26,14 @@ import contextlib
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from . import _build, ref, work
 from .ref import RelaxCSR, SynapseCSR
 
-#: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {
+#: kernel launches per wrapper since the last :func:`reset_launches`:
+#: ``obs.LAUNCHES``, the tracing module's always-on ``launches`` family
+LAUNCHES = obs.LAUNCHES
+LAUNCHES.update({
     "relax_round": 0,
     "relax_round_witness": 0,
     "maxplus_bmm": 0,
@@ -44,7 +47,7 @@ LAUNCHES = {
     "mamba_scan_route": 0,
     "spike_input": 0,
     "lif_record": 0,
-}
+})
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
 #: single-lambda deadlock probe

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..models import transformer as tf
 from ..optim import (AdamWConfig, adamw_update, cosine_schedule, decompress_int8,
@@ -96,7 +97,8 @@ def make_prefill_step(cfg: ArchConfig):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = tf.forward(params, batch, cfg)
+        with obs.span("step.prefill", batch["tokens"]):
+            logits, _ = tf.forward(params, batch, cfg)
         return logits
 
     return prefill_step
@@ -108,6 +110,7 @@ def make_serve_step(cfg: ArchConfig):
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, cache_len):
-        return tf.decode_step(params, tokens, cache, cache_len, cfg)
+        with obs.span("step.decode", tokens):
+            return tf.decode_step(params, tokens, cache, cache_len, cfg)
 
     return serve_step

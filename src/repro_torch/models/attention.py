@@ -25,6 +25,7 @@ import math
 import torch
 
 from .. import device as device_mod
+from .. import obs
 from ..kernels import ops
 from ..launch import sharding as sh
 from .blocks import apply_rope, init_linear, mm
@@ -242,8 +243,9 @@ def mla_forward(p, x, cfg, *, positions=None):
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     # the shared RoPE key is broadcast over the heads, not copied per head
     k_full = torch.cat([k_nope, k_rope.expand(b, h, s, dr)], dim=-1)
-    o = _per_head(lambda q, k, v: _sdpa(q, k, v, causal=True, window=0),   # 1/sqrt(dn + dr)
-                  q_full, k_full, v)
+    with obs.span("mla.sdpa", q_full):
+        o = _per_head(lambda q, k, v: _sdpa(q, k, v, causal=True, window=0),   # 1/sqrt(dn + dr)
+                      q_full, k_full, v)
     return mm(sh.merge_dims(o.transpose(1, 2), 2), p["wo"])
 
 

@@ -28,6 +28,12 @@ Without a mesh the reference runs ``shard_map`` as ``gather`` and ignores
 ``inference_ep``; so does the port.  All modes drop tokens beyond an
 expert's capacity and return the switch-style load-balancing aux loss.
 MoE has no Pallas kernel; it is plain PyTorch.
+
+While a profiler collects (``obs``), each mode marks its routing, dispatch,
+experts and combine as spans (``moe.route``, ``moe.dispatch``,
+``moe.experts``, ``moe.combine``; ``moe.shared`` the shared experts) and
+counts the choices, the expert rows it computes, the choices kept within
+capacity and the experts with a kept choice (this rank's under a mesh).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import obs
 from ..launch import sharding as sh
 from .blocks import init_linear, init_swiglu, mm, swiglu_ffn
 
@@ -60,20 +67,40 @@ def _routing(p, x, cfg):
     Ties keep the lower expert id first, as ``jax.lax.top_k`` does (a
     stable descending sort)."""
     e, k = cfg.moe_experts, cfg.moe_top_k
-    logits = mm(x, p["router"]).float()                      # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = gates[:, :k], idx[:, :k]
-    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    # switch aux loss: E * sum_e (frac_tokens_e * mean_prob_e)
-    onehot_top1 = F.one_hot(idx[:, 0], e).float()
-    aux = e * torch.mean(onehot_top1.mean(dim=0) * probs.mean(dim=0))
-    return gates.to(x.dtype), idx, aux
+    with obs.span("moe.route", x):
+        logits = mm(x, p["router"]).float()                  # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, idx = gates[:, :k], idx[:, :k]
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        # switch aux loss: E * sum_e (frac_tokens_e * mean_prob_e)
+        onehot_top1 = F.one_hot(idx[:, 0], e).float()
+        aux = e * torch.mean(onehot_top1.mean(dim=0) * probs.mean(dim=0))
+        return gates.to(x.dtype), idx, aux
 
 
 def _capacity(cfg, tokens: int) -> int:
     c = int(tokens * cfg.moe_top_k * cfg.moe_capacity / cfg.moe_experts)
     return max(c, 4)
+
+
+def _count_routing(choices: int, rows: int, pos, capacity: int, valid=None) -> None:
+    """The routing's counters, while ``obs`` records (off, no op runs):
+    ``choices`` (tokens x top-k) and expert ``rows`` computed, from the
+    host; the choices kept within capacity (``pos`` each choice's place in
+    its expert, ``valid`` the choices of this rank's experts), and the
+    experts with a kept choice, on the device.  An expert's first choice
+    (position 0) is kept whenever it has one, since the capacity is at
+    least 4."""
+    if obs.enabled():
+        keep, first = pos < capacity, pos == 0
+        if valid is not None:
+            keep &= valid
+            first &= valid
+        obs.count("moe.choices", choices)
+        obs.count("moe.rows", rows)
+        obs.count("moe.kept", keep.sum())
+        obs.count("moe.experts_hit", first.sum())
 
 
 def _run_experts(p, expert_in):
@@ -96,18 +123,22 @@ def _dispatch_onehot(p, x, gates, idx, cfg):
     t = x.shape[0]
     e = cfg.moe_experts
     c = _capacity(cfg, t)
-    oh_e = F.one_hot(idx, e)                                  # (T, k, E) int64
-    flat = oh_e.reshape(-1, e)
-    pos = (torch.cumsum(flat, dim=0) - flat) * flat
-    pos = pos.sum(dim=-1).reshape(idx.shape)                  # (T, k)
-    # a position past the capacity matches no slot: the choice is dropped
-    oh_c = (pos[..., None] == torch.arange(c, device=x.device)).to(x.dtype)
-    oh_e = oh_e.to(x.dtype)
-    dispatch = _einsum("tke,tkc->tec", oh_e, oh_c)
-    expert_in = _einsum("tec,td->ecd", dispatch, x)
-    expert_out = _run_experts(p, expert_in)
-    combine = _einsum("tke,tkc,tk->tec", oh_e, oh_c, gates)
-    return _einsum("tec,ecd->td", combine, expert_out)
+    with obs.span("moe.dispatch", x):
+        oh_e = F.one_hot(idx, e)                              # (T, k, E) int64
+        flat = oh_e.reshape(-1, e)
+        pos = (torch.cumsum(flat, dim=0) - flat) * flat
+        pos = pos.sum(dim=-1).reshape(idx.shape)              # (T, k)
+        # a position past the capacity matches no slot: the choice is dropped
+        oh_c = (pos[..., None] == torch.arange(c, device=x.device)).to(x.dtype)
+        oh_e = oh_e.to(x.dtype)
+        dispatch = _einsum("tke,tkc->tec", oh_e, oh_c)
+        expert_in = _einsum("tec,td->ecd", dispatch, x)
+    _count_routing(idx.numel(), e * c, pos, c)
+    with obs.span("moe.experts", x):
+        expert_out = _run_experts(p, expert_in)
+    with obs.span("moe.combine", x):
+        combine = _einsum("tke,tkc,tk->tec", oh_e, oh_c, gates)
+        return _einsum("tec,ecd->td", combine, expert_out)
 
 
 def _dispatch_gather(p, x, gates, idx, cfg):
@@ -115,19 +146,23 @@ def _dispatch_gather(p, x, gates, idx, cfg):
     t, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     c = _capacity(cfg, t)
-    flat_idx = idx.reshape(-1)                                # (T*k,)
-    oh = F.one_hot(flat_idx, e)
-    pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat_idx[:, None])[:, 0]
-    keep = pos < c
-    # every dropped choice writes the overflow row e*c, which is discarded
-    slot = torch.where(keep, flat_idx * c + pos, e * c)
-    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = x.repeat_interleave(k, dim=0)                 # jnp.repeat(x, k, axis=0)
-    expert_out = _run_experts(p, buf[:e * c].reshape(e, c, d)).reshape(e * c, d)
-    expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
-    w = gates.reshape(-1)[:, None] * keep[:, None].to(gates.dtype)
-    picked = expert_out[slot] * w
-    return picked.reshape(t, k, -1).sum(dim=1)
+    with obs.span("moe.dispatch", x):
+        flat_idx = idx.reshape(-1)                            # (T*k,)
+        oh = F.one_hot(flat_idx, e)
+        pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat_idx[:, None])[:, 0]
+        keep = pos < c
+        # every dropped choice writes the overflow row e*c, which is discarded
+        slot = torch.where(keep, flat_idx * c + pos, e * c)
+        buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
+        buf[slot] = x.repeat_interleave(k, dim=0)             # jnp.repeat(x, k, axis=0)
+    _count_routing(t * k, e * c, pos, c)
+    with obs.span("moe.experts", x):
+        expert_out = _run_experts(p, buf[:e * c].reshape(e, c, d)).reshape(e * c, d)
+    with obs.span("moe.combine", x):
+        expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
+        w = gates.reshape(-1)[:, None] * keep[:, None].to(gates.dtype)
+        picked = expert_out[slot] * w
+        return picked.reshape(t, k, -1).sum(dim=1)
 
 
 # ----------------------------------------------------------------------
@@ -193,32 +228,36 @@ def _local_moe(x_loc, router, w_gate, w_up, w_down, *, cfg, mesh, expert_axes=("
     for i, ax in enumerate(sizes):      # linearised in the mesh's axis order
         if ax in expert_axes:
             rank = rank * sizes[ax] + coord[i]
-    rel = idx - rank * e_loc                                  # (T, k)
-    valid = (rel >= 0) & (rel < e_loc)
+    with obs.span("moe.dispatch", x_loc):
+        rel = idx - rank * e_loc                              # (T, k)
+        valid = (rel >= 0) & (rel < e_loc)
 
-    # position within each LOCAL expert; choices of other ranks' experts go
-    # to a trash row e_loc
-    safe_rel = torch.where(valid, rel, e_loc)
-    flat = safe_rel.reshape(-1)
-    oh = F.one_hot(flat, e_loc + 1)
-    pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat[:, None])[:, 0]
-    keep = (valid.reshape(-1) & (pos < c)).reshape(t, k)
-    slot = torch.where(keep, safe_rel * c + pos.reshape(t, k), e_loc * c)
+        # position within each LOCAL expert; choices of other ranks' experts
+        # go to a trash row e_loc
+        safe_rel = torch.where(valid, rel, e_loc)
+        flat = safe_rel.reshape(-1)
+        oh = F.one_hot(flat, e_loc + 1)
+        pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat[:, None])[:, 0]
+        keep = (valid.reshape(-1) & (pos < c)).reshape(t, k)
+        slot = torch.where(keep, safe_rel * c + pos.reshape(t, k), e_loc * c)
 
-    # dispatch per choice (k scatters of (T, D)): never the (T*k, D) repeat
-    buf = x_loc.new_zeros((e_loc * c + 1, d))
-    for j in range(k):
-        buf[slot[:, j]] = x_loc
-    expert_in = buf[:e_loc * c].reshape(e_loc, c, d)
-    h = F.silu(mm(expert_in, w_gate)) * mm(expert_in, w_up)
-    expert_out = mm(h, w_down).reshape(e_loc * c, -1)
-    expert_out = torch.cat([expert_out, expert_out.new_zeros((1, expert_out.shape[1]))])
-    y_partial = expert_out.new_zeros((t, expert_out.shape[1]))
-    for j in range(k):
-        w = (gates[:, j] * keep[:, j]).to(x_loc.dtype)[:, None]
-        y_partial = y_partial + expert_out[slot[:, j]] * w
-    groups = [mesh.get_group(ax) for ax in sizes if ax in expert_axes]
-    y = _AllReduce.apply(y_partial, groups, 1)
+        # dispatch per choice (k scatters of (T, D)): never the (T*k, D) repeat
+        buf = x_loc.new_zeros((e_loc * c + 1, d))
+        for j in range(k):
+            buf[slot[:, j]] = x_loc
+        expert_in = buf[:e_loc * c].reshape(e_loc, c, d)
+    _count_routing(t * k, e_loc * c, pos, c, valid.reshape(-1))
+    with obs.span("moe.experts", x_loc):
+        h = F.silu(mm(expert_in, w_gate)) * mm(expert_in, w_up)
+        expert_out = mm(h, w_down).reshape(e_loc * c, -1)
+    with obs.span("moe.combine", x_loc):
+        expert_out = torch.cat([expert_out, expert_out.new_zeros((1, expert_out.shape[1]))])
+        y_partial = expert_out.new_zeros((t, expert_out.shape[1]))
+        for j in range(k):
+            w = (gates[:, j] * keep[:, j]).to(x_loc.dtype)[:, None]
+            y_partial = y_partial + expert_out[slot[:, j]] * w
+        groups = [mesh.get_group(ax) for ax in sizes if ax in expert_axes]
+        y = _AllReduce.apply(y_partial, groups, 1)
     aux = _AllReduce.apply(aux, [mesh.get_group(ax) for ax in sizes], 1.0 / mesh.size())
     return y, aux
 
@@ -321,7 +360,8 @@ def moe_forward(p, x, cfg, *, mesh=None):
         y, aux = _replicated(run, (flat, p["router"], ex["w_gate"], ex["w_up"], ex["w_down"]),
                              mesh)
     if "shared" in p:
-        y = y + swiglu_ffn(p["shared"], flat)
+        with obs.span("moe.shared", flat):
+            y = y + swiglu_ffn(p["shared"], flat)
     # back in the tokens' layout: the sum may shard the tokens over more
     # axes than the batch's, which B x S cannot split into
     return sh.like(y, flat).reshape(b, s, -1), aux

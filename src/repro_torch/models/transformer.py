@@ -22,7 +22,9 @@ Every layer kind of the reference is ported: the ``gqa``, ``mla``,
 ``moe`` FFNs (or none); an unknown kind raises ``ValueError``, as the
 reference's.  ``logical_shard`` sits at the reference's four sites: the
 identity without an LM mesh, on a DTensor a redistribution to the batch
-axes (and the vocab over ``"model"`` for the logits).
+axes (and the vocab over ``"model"`` for the logits).  While a profiler
+collects, the embedding, each layer's mixer and FFN (norm, sublayer and
+residual) and the head are ``obs`` spans.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..configs.base import ArchConfig, LayerSpec
 from ..launch.sharding import embedding, lm_mesh, logical_shard, use_mesh
 from . import attention as attn
@@ -130,32 +133,35 @@ def _ffn(p, spec: LayerSpec, x, cfg):
     """``x`` plus the layer's FFN of it, and the FFN's MoE aux loss (or None)."""
     if spec.ffn == "none":
         return x, None
-    h = _norm(p, "norm2", x, cfg)
-    aux = None
-    if spec.ffn == "swiglu":
-        h = swiglu_ffn(p["ffn"], h)
-    elif spec.ffn == "gelu":
-        h = gelu_ffn(p["ffn"], h)
-    else:
-        h, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
-    return x + h, aux
+    with obs.span("ffn." + spec.ffn, x):
+        h = _norm(p, "norm2", x, cfg)
+        aux = None
+        if spec.ffn == "swiglu":
+            h = swiglu_ffn(p["ffn"], h)
+        elif spec.ffn == "gelu":
+            h = gelu_ffn(p["ffn"], h)
+        else:
+            h, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
+        return x + h, aux
 
 
 def _apply_layer(p, spec: LayerSpec, x, cfg, positions):
-    h = _norm(p, "norm1", x, cfg)
-    if spec.mixer == "gqa":
-        h = attn.gqa_forward(p["mixer"], h, cfg, positions=positions)
-    elif spec.mixer == "mla":
-        h = attn.mla_forward(p["mixer"], h, cfg, positions=positions)
-    elif spec.mixer == "mamba":
-        h = mam.mamba_forward(p["mixer"], h, cfg)
-    elif spec.mixer == "mlstm":
-        h = xl.mlstm_forward(p["mixer"], h, cfg)
-    elif spec.mixer == "slstm":
-        h = xl.slstm_forward(p["mixer"], h, cfg)
-    else:
-        raise ValueError(spec.mixer)
-    x, aux = _ffn(p, spec, x + h, cfg)
+    with obs.span("mixer." + spec.mixer, x):
+        h = _norm(p, "norm1", x, cfg)
+        if spec.mixer == "gqa":
+            h = attn.gqa_forward(p["mixer"], h, cfg, positions=positions)
+        elif spec.mixer == "mla":
+            h = attn.mla_forward(p["mixer"], h, cfg, positions=positions)
+        elif spec.mixer == "mamba":
+            h = mam.mamba_forward(p["mixer"], h, cfg)
+        elif spec.mixer == "mlstm":
+            h = xl.mlstm_forward(p["mixer"], h, cfg)
+        elif spec.mixer == "slstm":
+            h = xl.slstm_forward(p["mixer"], h, cfg)
+        else:
+            raise ValueError(spec.mixer)
+        x = x + h
+    x, aux = _ffn(p, spec, x, cfg)
     return logical_shard(x, "act"), aux
 
 
@@ -214,9 +220,10 @@ def _run_stacks(params, x, cfg, positions):
 
 
 def _logits(params, x, cfg):
-    x = rms_norm(params["final_norm"], x)   # the final norm is RMS everywhere
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return mm(x, head.to(cfg.activation_dtype))
+    with obs.span("head", x):
+        x = rms_norm(params["final_norm"], x)   # the final norm is RMS everywhere
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return mm(x, head.to(cfg.activation_dtype))
 
 
 def forward(params, batch: dict, cfg: ArchConfig):
@@ -225,13 +232,14 @@ def forward(params, batch: dict, cfg: ArchConfig):
     # token's row in a fixed order, where indexing's (index_put_ with
     # accumulate) adds them with atomics on the CPU, so two runs part and a
     # restart is not exact
-    x = embedding(batch["tokens"], params["embed"]).to(cfg.activation_dtype)
-    n_front = 0
-    if cfg.frontend and "frontend_embeds" in batch:
-        fe = mm(batch["frontend_embeds"].to(cfg.activation_dtype), params["frontend_proj"])
-        dt = torch.promote_types(fe.dtype, x.dtype)
-        x = torch.cat([fe.to(dt), x.to(dt)], dim=1)
-        n_front = fe.shape[1]
+    with obs.span("embed", batch["tokens"]):
+        x = embedding(batch["tokens"], params["embed"]).to(cfg.activation_dtype)
+        n_front = 0
+        if cfg.frontend and "frontend_embeds" in batch:
+            fe = mm(batch["frontend_embeds"].to(cfg.activation_dtype), params["frontend_proj"])
+            dt = torch.promote_types(fe.dtype, x.dtype)
+            x = torch.cat([fe.to(dt), x.to(dt)], dim=1)
+            n_front = fe.shape[1]
     x = logical_shard(x, "act")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_stacks(params, x, cfg, positions)
@@ -282,20 +290,22 @@ def init_cache_abstract(cfg: ArchConfig, batch: int, max_len: int):
 
 
 def _decode_layer(p, spec: LayerSpec, x, cache, length, cfg):
-    h = _norm(p, "norm1", x, cfg)
-    if spec.mixer == "gqa":
-        h, cache = attn.gqa_decode(p["mixer"], h, cache, length, cfg)
-    elif spec.mixer == "mla":
-        h, cache = attn.mla_decode(p["mixer"], h, cache, length, cfg)
-    elif spec.mixer == "mamba":
-        h, cache = mam.mamba_decode(p["mixer"], h, cache, cfg)
-    elif spec.mixer == "mlstm":
-        h, cache = xl.mlstm_decode(p["mixer"], h, cache, cfg)
-    elif spec.mixer == "slstm":
-        h, cache = xl.slstm_decode(p["mixer"], h, cache, cfg)
-    else:
-        raise ValueError(spec.mixer)
-    return _ffn(p, spec, x + h, cfg)[0], cache
+    with obs.span("mixer." + spec.mixer, x):
+        h = _norm(p, "norm1", x, cfg)
+        if spec.mixer == "gqa":
+            h, cache = attn.gqa_decode(p["mixer"], h, cache, length, cfg)
+        elif spec.mixer == "mla":
+            h, cache = attn.mla_decode(p["mixer"], h, cache, length, cfg)
+        elif spec.mixer == "mamba":
+            h, cache = mam.mamba_decode(p["mixer"], h, cache, cfg)
+        elif spec.mixer == "mlstm":
+            h, cache = xl.mlstm_decode(p["mixer"], h, cache, cfg)
+        elif spec.mixer == "slstm":
+            h, cache = xl.slstm_decode(p["mixer"], h, cache, cfg)
+        else:
+            raise ValueError(spec.mixer)
+        x = x + h
+    return _ffn(p, spec, x, cfg)[0], cache
 
 
 def decode_step(params, tokens, cache, length: int, cfg: ArchConfig):
@@ -303,7 +313,8 @@ def decode_step(params, tokens, cache, length: int, cfg: ArchConfig):
 
     Returns (logits (B, 1, V), cache); the cache is updated in place.
     """
-    x = logical_shard(embedding(tokens, params["embed"]).to(cfg.activation_dtype), "act")
+    with obs.span("embed", tokens):
+        x = logical_shard(embedding(tokens, params["embed"]).to(cfg.activation_dtype), "act")
     for sk, r, lk, spec, lp in _layers(params, cfg):
         x, _ = _decode_layer(lp, spec, x, _index(cache[sk][lk], r), length, cfg)
     return _logits(params, x, cfg), cache
