@@ -94,7 +94,9 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               whole stacked trajectory bit-identical to the plain version and
               K5 launched 5 x (1 + 4) times
 13. jamba_serve jamba-v0.1-52b cut to one of its four 8-layer blocks, float32
-              params from seed 0, served at the reference's defaults; the
+              params from seed 0, served at the reference's defaults (each MoE
+              layer's experts by the kept-row pair in decode, 1 choice an
+              expert, by the padded GEMMs in prefill, 32); the
               prefill step on the same prompts (one chunk) launches K7 7 times
               (no route, states pass or combine) and K6 once; the first Mamba
               layer's prefill output (K7) held against its token-by-token
@@ -113,8 +115,9 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               the reference's 2e-2 (the bf16 run's difference printed,
               unchecked: routing amplifies the decode's bf16 rounding);
               the first MLA layer's prefill against its token-by-token decode
-              within MLA_CONTEXT_TOL of the decode output's rms; no kernel of
-              ops launches; decode step against the bound of reading the
+              within MLA_CONTEXT_TOL of the decode output's rms; only the
+              MoE's kept-row pair launches (moe_gate_up and moe_down, as often
+              as each other); decode step against the bound of reading the
               weights, peak memory beside the parameters' bytes
 16. deepseek_prefill the same cut in bf16 params at the config's capacity,
               one prefill step at (1, 4096) tokens; a second, profiled run
@@ -238,7 +241,16 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               fired flags of recorded step SI_STEP, bit-identical to the
               host's; K1, K7 and
               the route, launched on
-              several paths, also timed at each path's largest call; K1 and
+              several paths, also timed at each path's largest call; the
+              MoE's kept-row pair (moe_gate_up then moe_down) at each path's
+              largest call (its x, h and routing, the layer's weights drawn
+              anew) and on inputs of its own at the decode cells' two MoE
+              layers (ref.MOE_DECODE_SHAPES: 32 tokens, each token's experts
+              drawn at random, dropless, float32), each kernel within
+              kernels/ref.py's MOE_TOL of its plain version, two runs equal,
+              timed against its bound (the experts hit's weights, x, h and
+              the outputs once), the plain version and the padded route it
+              replaced (library_ms); K1 and
               K5 also checked and timed at the first call of every distinct
               shape of each path (``by_shape``: K5's stacked step and the
               example's G = 1 call; K2's dense and sweep shapes; K1's
@@ -247,8 +259,8 @@ Phases (each one fails the run if it fails; JSON lines on stdout):
               launches, with the launch-weighted ``rule2_ms``)
 
 Launch counts are set to 0 just before each path's phase (2, 3, 5, 7, 8, 10-21,
-23, 24) and read just after, and reported per path (phases 15-18 and 24 must
-launch none);
+23, 24) and read just after, and reported per path (phases 16-18 and 24 must
+launch none, phase 15 the kept-row pair only);
 launches made to compare or time kernels do not count.
 """
 
@@ -337,7 +349,11 @@ DEEPSEEK_PREFILL_TOKENS = XLSTM_PREFILL_TOKENS = 4_096
 XLSTM_PROFILED_TOKENS = 512
 #: kernels launched on more than one path at different shapes: each is also
 #: timed at every path's largest call (the rule-2 order weighs launches by it)
-BY_PATH = ("relax_round", "relax_round_witness", "mamba_chunk_scan", "mamba_scan_route")
+BY_PATH = ("relax_round", "relax_round_witness", "mamba_chunk_scan", "mamba_scan_route",
+           "moe_gate_up", "moe_down")
+#: arguments a spied call keeps by shape alone (a MoE layer's experts, 11 to
+#: 45 GB in float32): phase 27 draws them anew from a seed
+SHAPE_ONLY = {"moe_gate_up": (2, 3), "moe_down": (2,)}
 #: kernels off every path: the scan's states pass and combine since its route
 #: became one walk (checked and timed as the route's yardstick on its largest
 #: call's inputs), spike_input since the recording became one launch
@@ -819,6 +835,10 @@ def main() -> None:
         "lif_record": (("n", "E", "steps"),
                        lambda csr, is_input, draws, params: (draws.shape[1], int(csr.pre.numel()),
                                                              draws.shape[0])),
+        "moe_gate_up": (("T", "k", "E", "D", "F"),
+                        lambda x, idx, w_gate, w_up, **kw: (*idx.shape, *w_gate.shape)),
+        "moe_down": (("T", "k", "E", "F", "D"),
+                     lambda h, idx, w_down, **kw: (*idx.shape, *w_down.shape)),
     }
 
     def work(name, shape):    # E*K terms for K1, the product of the dims otherwise
@@ -832,7 +852,9 @@ def main() -> None:
         table[key] = kept or {
             "work": work(name, shape), "path": where["path"], "app": where["app"],
             "shape": shape, "kwargs": dict(kwargs), "args": tuple(
-                a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args),
+                a.shape if i in SHAPE_ONLY.get(name, ()) else
+                a.detach().clone() if isinstance(a, torch.Tensor) else a
+                for i, a in enumerate(args)),
         }
         return table[key]
 
@@ -1904,9 +1926,9 @@ def main() -> None:
 
     # -- 15. deepseek-v3's MLA and MoE serving path --------------------------
     # one dense-prefix layer and one MoE layer of deepseek-v3 at full width,
-    # float32 params from seed 0, served at the reference's defaults; no
-    # kernel of ops launches (the reference's MLA and MoE reach no Pallas
-    # kernel)
+    # float32 params from seed 0, served at the reference's defaults; of the
+    # kernels of ops only the MoE's kept-row pair launches (the reference's
+    # MLA and MoE reach no Pallas kernel; the pair is the port's own)
     t_phase = time.perf_counter()
     args = tserve.parse_args(["--arch", DEEPSEEK])
     full_cfg = get_arch(DEEPSEEK)
@@ -1964,10 +1986,14 @@ def main() -> None:
                                 for i in range(args.prompt_len)], dim=1)
     fwd, dec = float32_prefill_and_decode(cfg, params, prompts, args.max_len)
     deepseek_launches = dict(ops.LAUNCHES)
+    read_into("deepseek_serve")
     where.update(path=None, app=None)
     peak = torch.cuda.max_memory_allocated()
-    check(not any(deepseek_launches.values()),
-          f"deepseek-v3's serving path launched {deepseek_launches}: its MLA and MoE have no kernel")
+    launched = {k: v for k, v in deepseek_launches.items() if v}
+    check(set(launched) == {"moe_gate_up", "moe_down"}
+          and launched["moe_gate_up"] == launched["moe_down"],
+          f"deepseek-v3's serving path launched {deepseek_launches}: of its MLA and MoE only "
+          "the MoE's kept-row pair has a kernel")
     check(res.tokens.shape == (args.requests, args.gen_tokens)
           and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(), "deepseek: bad generated tokens")
     check(prefill_logits.shape == (args.requests, args.prompt_len, cfg.vocab)
@@ -3429,6 +3455,7 @@ def main() -> None:
         lambda x, dt, a, b, c, h0, chunk=128: kwork.scan_work(x, a, b, h0, chunk=chunk),
         FP32_FLOPS_PER_S)
     del ks, k7_rows, serve7
+    moe_calls = {n: path_largest.pop(n) for n in ("moe_gate_up", "moe_down")}
     del x7, dt7, a7, b7, c7, h07, zeros7, kc, path_largest
 
     # lif_record on the inputs of its largest call (HeartClass's recording),
@@ -3525,6 +3552,93 @@ def main() -> None:
            in_degree_mean=float(deg9.double().mean()), in_degree_max=int(deg9.max()),
            equal_in_two_launches=True)
     del s9, csr9, csr9_host, k9, sparse9, rec, csr_r, in_r, draws_r, host_record
+
+    # the MoE's kept-row pair, each kernel within MOE_TOL of its plain
+    # version: at each path's largest call, on the spied x, h and routing
+    # with the layer's weights drawn anew (the serve phases' are long
+    # freed), and at the decode cells' two MoE layers on inputs of its own
+    # (32 tokens, dropless, each token's experts drawn at random); timed
+    # against its bound and the padded route it replaced (library_ms)
+    moe_rows = []
+    moe_cases = collections.defaultdict(list)        # (E, D, F) -> [(at, x, h, idx, cap)]
+    for path, call in moe_calls["moe_gate_up"].items():
+        down = moe_calls["moe_down"][path]
+        x_m, idx_m = call["args"][:2]
+        check(torch.equal(idx_m, down["args"][1]),
+              f"moe_gate_up's and moe_down's largest calls on {path} differ in routing")
+        moe_cases[tuple(call["args"][2])].append(
+            ({"path": path, "app": call["app"], "launches": launches["moe_gate_up"][path]},
+             x_m, down["args"][0], idx_m, call["kwargs"]["capacity"]))
+    for at, (e_m, d_m, f_m, t_m, k_m) in ref.MOE_DECODE_SHAPES.items():
+        gen_m = torch.Generator(device=dev).manual_seed(0)
+        idx_m = torch.rand((t_m, e_m), generator=gen_m, device=dev).argsort(dim=1)[:, :k_m]
+        moe_cases[(e_m, d_m, f_m)].append(
+            ({"at": at}, torch.randn((t_m, d_m), generator=gen_m, device=dev), None, idx_m, t_m))
+    for (e_m, d_m, f_m), cases in moe_cases.items():
+        gen_m = torch.Generator(device=dev).manual_seed(1)
+        wg_m, wu_m = (0.02 * torch.randn((e_m, d_m, f_m), generator=gen_m, device=dev)
+                      for _ in range(2))
+        wd_m = 0.02 * torch.randn((e_m, f_m, d_m), generator=gen_m, device=dev)
+        for at, x_m, h_in, idx_m, cap_m in cases:
+            t_m, k_m = idx_m.shape
+            load_m = torch.bincount(idx_m.reshape(-1), minlength=e_m)
+            kept_m, hit_m = int(load_m.clamp(max=cap_m).sum()), int((load_m > 0).sum())
+            h_plain = ref.moe_gate_up_ref(x_m, idx_m, wg_m, wu_m, capacity=cap_m)
+            h_in = h_plain if h_in is None else h_in
+
+            def gate_up():
+                return ops.moe_gate_up(x_m, idx_m, wg_m, wu_m, capacity=cap_m)
+
+            def down():
+                return ops.moe_down(h_in, idx_m, wd_m, capacity=cap_m)
+
+            def moe_plain():
+                h = ref.moe_gate_up_ref(x_m, idx_m, wg_m, wu_m, capacity=cap_m)
+                return ref.moe_down_ref(h, idx_m, wd_m, capacity=cap_m)
+
+            def moe_padded():
+                return tmoe._run_experts(
+                    {"experts": {"w_gate": wg_m, "w_up": wu_m, "w_down": wd_m}},
+                    tmoe._pad(x_m, idx_m, e_m, cap_m)[0])
+
+            got = (gate_up(), down())
+            check(torch.equal(got[0], gate_up()) and torch.equal(got[1], down()),
+                  f"the kept-row pair differs between two runs at {at}")
+            ratios = [ref.moe_excess(got[0], h_plain),
+                      ref.moe_excess(got[1], ref.moe_down_ref(h_in, idx_m, wd_m, capacity=cap_m))]
+            check(max(ratios) <= 1.0, f"the kept-row pair is {ratios} times MOE_TOL at {at}")
+            gu_b, gu_f = kwork.moe_rows_work(x_m, idx_m, wg_m, mats=2, kept=kept_m, hit=hit_m)
+            dn_b, dn_f = kwork.moe_rows_work(h_in, idx_m, wd_m, mats=1, kept=kept_m, hit=hit_m)
+            b_ms, b_by = bound(gu_b + dn_b, gu_f + dn_f, FP32_FLOPS_PER_S)
+            gate_up_ms, down_ms = timed(gate_up), timed(down)
+            moe_rows.append({
+                **at, "shape": dict(zip(("E", "D", "F", "T", "k"), (e_m, d_m, f_m, t_m, k_m))),
+                "capacity": cap_m, "mean_rows": t_m * k_m / e_m, "max_rows": int(load_m.max()),
+                "experts_hit": hit_m, "kept_rows": kept_m, "tol_ratio_h": ratios[0],
+                "tol_ratio_out": ratios[1], "equal_in_two_runs": True,
+                "ms": gate_up_ms + down_ms, "gate_up_ms": gate_up_ms, "down_ms": down_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / (gate_up_ms + down_ms),
+                "plain_ms": timed(moe_plain), "library_ms": timed(moe_padded)})
+            del got, h_plain, h_in
+        del wg_m, wu_m, wd_m
+        torch.cuda.empty_cache()
+    order = [*ref.MOE_DECODE_SHAPES, None]            # the decode layers first
+    moe_rows.sort(key=lambda r: order.index(r.get("at")))
+    kernels.append({
+        "name": "moe_kept_rows", "route": "cuda", "source": "src/repro_torch/csrc/moe_experts.cu",
+        "replaces": None,
+        "replaces_note": "not a Pallas kernel: the reference's MoE is plain JAX; the pair takes "
+                         "the place of models/moe.py's padded (E, C, D) GEMMs where the weights "
+                         "bound the experts",
+        "wrappers": ["moe_gate_up", "moe_down"],
+        "launches": sum(launches["moe_gate_up"].values()),
+        "launches_by_path": {w: launches[w] for w in ("moe_gate_up", "moe_down")},
+        "tolerance": {"rtol": ref.MOE_TOL[0], "row_tol": ref.MOE_TOL[1]},
+        **{k: moe_rows[0][k] for k in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+        "library_call": "the padded route: models/moe.py's _pad (E, C, D) dispatch and "
+                        "_run_experts' three torch.matmul",
+        "by_shape": [r for r in moe_rows if "at" in r],
+        "by_path": {r["path"]: r for r in moe_rows if "path" in r}})
 
     for kern in kernels:
         check(kern["launches"] > 0 or kern["name"] in OFF_PATH,

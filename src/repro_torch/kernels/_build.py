@@ -79,6 +79,12 @@ SIGNATURES = {
         "lif_barrier_floor": [_I, _I, _I, _P],     # n, E, n_steps, stream
         "empty_launch": [_P],                  # stream
     },
+    "moe_experts": {
+        # x, idx, w_gate, w_up, h, T, k, ld_idx, E, D, F, capacity, stream
+        "moe_gate_up": [_P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I, _P],
+        # h, idx, w_down, out, T, k, ld_idx, E, F, D, capacity, stream
+        "moe_down": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

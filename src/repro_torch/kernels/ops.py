@@ -5,9 +5,10 @@ A CUDA tensor goes to the hand-written kernel in ``csrc/`` or the call
 raises: there is no size threshold below which the plain version takes
 over, and no fallback when the library cannot be built or a launch fails.
 Each wrapper adds one to :data:`LAUNCHES` where it launches its kernel.
-Flash attention and the Mamba scan's four wrappers also take ``meta``
-tensors: they return a ``meta`` output of the kernel's shape and type
-(the dry run, ``launch/dryrun.py``), after the checks the card makes.
+Flash attention, the Mamba scan's four wrappers and the MoE's kept-row
+pair also take ``meta`` tensors: they return a ``meta`` output of the
+kernel's shape and type (the dry run, ``launch/dryrun.py``), after the
+checks the card makes.
 A DTensor raises: the models run each rank's shard through
 ``launch.sharding.local_call``, so a kernel sees its local tensors.
 
@@ -47,6 +48,8 @@ LAUNCHES.update({
     "mamba_scan_route": 0,
     "spike_input": 0,
     "lif_record": 0,
+    "moe_gate_up": 0,
+    "moe_down": 0,
 })
 
 #: probe counts relax_round.cu instantiates: the search's K = 3 and the
@@ -62,10 +65,10 @@ SCAN_STATES = (8, 16)
 SCAN_SMEM_BYTES = 48 * 1024
 
 
-#: observers of each call of the flash attention and Mamba scan wrappers
-#: (the dry run's counter), innermost last.  The innermost is called as
-#: ``hook(name, (nbytes, flops), run)`` on every device, with the call's
-#: work from :mod:`.work`, and returns ``run()``, the call's leg.
+#: observers of each call of the flash attention, Mamba scan and kept-row
+#: MoE wrappers (the dry run's counter), innermost last.  The innermost is
+#: called as ``hook(name, (nbytes, flops), run)`` on every device, with the
+#: call's work from :mod:`.work`, and returns ``run()``, the call's leg.
 CHARGE_HOOKS: list = []
 
 
@@ -709,3 +712,66 @@ def _mamba_scan_forward(x, dt, a, b, c, chunk):
         return mamba_scan_route(x, dt, a, b, c, chunk=chunk)
     y, h_fin = mamba_chunk_scan(x, dt, a, b, c, None, chunk=chunk)
     return y, h_fin[:, -1]
+
+
+# ======================================================================
+# the MoE's routed experts on the kept choices' rows
+# ======================================================================
+def moe_gate_up(x: torch.Tensor, idx: torch.Tensor, w_gate: torch.Tensor,
+                w_up: torch.Tensor, *, capacity: int) -> torch.Tensor:
+    """(T*k, F) float32 ``silu(x[t] @ w_gate[e]) * (x[t] @ w_up[e])`` at each
+    choice c = t*k + j of ``idx`` (T, k) whose expert e = idx[t, j] has
+    fewer than ``capacity`` earlier choices in flat order, 0 at every other
+    (see ``ref.moe_gate_up_ref``); x (T, D), the weights (E, D, F).  On the
+    card only the experts with a kept choice are read."""
+    t, d = x.shape
+    if (idx.dim() != 2 or idx.shape[0] != t or w_gate.dim() != 3
+            or w_gate.shape[1] != d or w_up.shape != w_gate.shape):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, idx {tuple(idx.shape)}, "
+                         f"w_gate {tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}")
+    return _charged("moe_gate_up", lambda: work.moe_rows_work(x, idx, w_gate, mats=2),
+                    lambda: _moe_leg("moe_gate_up", x, idx, {"w_gate": w_gate, "w_up": w_up},
+                                     capacity))
+
+
+def moe_down(h: torch.Tensor, idx: torch.Tensor, w_down: torch.Tensor, *,
+             capacity: int) -> torch.Tensor:
+    """(T*k, D) float32 ``h[c] @ w_down[e]`` at each kept choice c (as
+    :func:`moe_gate_up`'s), 0 at every other (see ``ref.moe_down_ref``); h
+    (T*k, F), w_down (E, F, D)."""
+    if (h.dim() != 2 or idx.dim() != 2 or h.shape[0] != idx.numel() or w_down.dim() != 3
+            or w_down.shape[1] != h.shape[1]):
+        raise ValueError(f"shape mismatch: h {tuple(h.shape)}, idx {tuple(idx.shape)}, "
+                         f"w_down {tuple(w_down.shape)}")
+    return _charged("moe_down", lambda: work.moe_rows_work(h, idx, w_down, mats=1),
+                    lambda: _moe_leg("moe_down", h, idx, {"w_down": w_down}, capacity))
+
+
+def _moe_leg(name, src, idx, weights: dict, capacity):
+    ws = tuple(weights.values())
+    leg = _leg(src, idx, *ws)
+    if leg == "cpu":
+        plain = ref.moe_gate_up_ref if name == "moe_gate_up" else ref.moe_down_ref
+        return plain(src, idx, *ws, capacity=capacity)
+    for tname, t in (("x" if name == "moe_gate_up" else "h", src), *weights.items()):
+        _check(t, torch.float32, tname)
+    if idx.dtype != torch.int64 or idx.stride(1) != 1:
+        raise TypeError(f"{name} takes int64 idx with unit column stride, got {idx.dtype} "
+                        f"with strides {idx.stride()}")
+    n_experts, depth, width = ws[0].shape
+    if depth % 4 or width % 4 or any(t.data_ptr() % 16 for t in (src, *ws)):
+        raise ValueError(f"{name} takes widths that are multiples of 4 and 16-byte aligned "
+                         f"operands, got weights {tuple(ws[0].shape)}")
+    if capacity < 1:
+        raise ValueError(f"{name} takes a capacity of at least 1, got {capacity}")
+    out = torch.empty((idx.numel(), width), dtype=torch.float32, device=src.device)
+    if out.numel() == 0 or leg == "meta":
+        return out
+    t, k = idx.shape
+    fn = getattr(_build.library("moe_experts"), name)
+    with _launch_on(src) as stream:
+        err = fn(src.data_ptr(), idx.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr(),
+                 t, k, idx.stride(0), n_experts, depth, width, int(capacity), stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out

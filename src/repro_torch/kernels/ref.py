@@ -6,10 +6,10 @@ Each function computes exactly what its kernel in ``csrc/`` computes.  The
 step adds its products in increasing k; so on the same inputs kernel and
 plain version agree bit for bit; so do the synaptic sum, which adds each
 node's synapses in synapse order, and the LIF recording built on it.
-Attention sums in another order than its kernel, and the chunk scan's
-``exp`` may differ from the kernel's ``expf`` by an ulp (the states-only
-pass and the chunk combine compute theirs otherwise too), so those agree
-within a stated tolerance.
+Attention and the MoE's kept-row pair sum in another order than their
+kernels, and the chunk scan's ``exp`` may differ from the kernel's
+``expf`` by an ulp (the states-only pass and the chunk combine compute
+theirs otherwise too), so those agree within a stated tolerance.
 :mod:`repro_torch.kernels.ops` routes CPU tensors here; ``chip_smoke.py``
 holds every kernel against these on the card.
 """
@@ -456,6 +456,75 @@ def state_excess(out: torch.Tensor, plain: torch.Tensor) -> float:
     of one channel, with :data:`SCAN_TOL`'s float32 limits; at most 1 means
     ``out`` agrees with ``plain``."""
     rtol, row_tol = SCAN_TOL[torch.float32]
+    diff = (out - plain).abs()
+    limit = rtol * plain.abs() + row_tol * plain.square().mean(dim=-1, keepdim=True).sqrt()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+# ----------------------------------------------------------------------
+# the MoE's routed experts on the kept choices' rows
+# ----------------------------------------------------------------------
+def _kept_choices(idx: torch.Tensor, n_experts: int, capacity: int):
+    """``(expert, flat choices)`` for every expert with a choice kept within
+    ``capacity``: the choices c = t*k + j of ``idx`` (T, k) routed to it
+    with fewer than ``capacity`` earlier ones in flat order, in order."""
+    flat = idx.reshape(-1)
+    oh = torch.nn.functional.one_hot(flat, n_experts)
+    pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat[:, None])[:, 0]
+    keep = pos < capacity
+    for e in torch.unique(flat[keep]).tolist():
+        yield e, torch.nonzero((flat == e) & keep)[:, 0]
+
+
+def moe_gate_up_ref(x: torch.Tensor, idx: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, *, capacity: int) -> torch.Tensor:
+    """(T*k, F) float32: at each kept choice c = t*k + j (see
+    :func:`_kept_choices`) of expert e, ``silu(x[t] @ w_gate[e]) * (x[t] @
+    w_up[e])``; 0 at every other choice.  x (T, D), idx (T, k), the
+    weights (E, D, F)."""
+    k = idx.shape[1]
+    h = torch.zeros((idx.numel(), w_gate.shape[2]), dtype=torch.float32, device=x.device)
+    for e, rows in _kept_choices(idx, w_gate.shape[0], capacity):
+        xe = x[rows // k].float()
+        h[rows] = torch.nn.functional.silu(xe @ w_gate[e].float()) * (xe @ w_up[e].float())
+    return h
+
+
+def moe_down_ref(h: torch.Tensor, idx: torch.Tensor, w_down: torch.Tensor, *,
+                 capacity: int) -> torch.Tensor:
+    """(T*k, D) float32: ``h[c] @ w_down[e]`` at each kept choice c of expert
+    e, 0 at every other.  h (T*k, F), w_down (E, F, D)."""
+    out = torch.zeros((idx.numel(), w_down.shape[2]), dtype=torch.float32, device=h.device)
+    for e, rows in _kept_choices(idx, w_down.shape[0], capacity):
+        out[rows] = h[rows].float() @ w_down[e].float()
+    return out
+
+
+#: the decode cells' MoE layers, (E, D, F, tokens, top-k): deepseek-v3's
+#: and jamba's at 32 tokens, dropless; the card tests, ``chip_smoke.py``
+#: and ``tools/moe_kept_ab.py`` hold the kept-row pair there
+MOE_DECODE_SHAPES = {"deepseek_decode": (256, 7168, 2048, 32, 8),
+                     "jamba_decode": (16, 4096, 14336, 32, 2)}
+
+
+#: how far the kept-row kernels' outputs may lie from the plain versions',
+#: per element: ``rtol`` of the element plus ``row_tol`` of the root mean
+#: square of its output row.  Both sides are float32 dot products over the
+#: depth (D = 7168 or 4096 into the gate and up, F = 2048 or 14336 into
+#: the down projection) summed in different orders (the kernel's depth
+#: groups against a GEMM's): a running float32 sum of n terms of random
+#: sign is off by about sqrt(n / 2) 2^-24 of its own size, 2^-17.4 at n =
+#: 14336, silu(g) * u adds its two inputs' relative errors and the down
+#: projection carries h's on; row_tol leaves about 5 x that.
+MOE_TOL = (2.0**-20, 2.0**-14)
+
+
+def moe_excess(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """The largest ``|out - plain| / (rtol |plain| + row_tol rms(plain row))``
+    over the elements of a (T*k, N) kept-row output, with :data:`MOE_TOL`;
+    at most 1 means ``out`` agrees with ``plain``."""
+    rtol, row_tol = MOE_TOL
     diff = (out - plain).abs()
     limit = rtol * plain.abs() + row_tol * plain.square().mean(dim=-1, keepdim=True).sqrt()
     ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)

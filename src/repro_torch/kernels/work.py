@@ -2,11 +2,12 @@
 does, from its inputs' shapes.
 
 One formula each for flash attention (K6), the chunk scan (K7), its
-states-only pass, the chunk combine, the scan's route, the synaptic sum and
-the LIF recording.  ``chip_smoke.py`` divides them by the card's rates for
-each kernel's ``bound_ms``; the dry run (``launch/dryrun.py``) charges the
-first five for each wrapper call, on every device, in place of the plain
-version's operations.  Bytes count each
+states-only pass, the chunk combine, the scan's route, the synaptic sum,
+the LIF recording and the MoE's kept-row pair.  ``chip_smoke.py`` divides
+them by the card's rates for each kernel's ``bound_ms``; the dry run
+(``launch/dryrun.py``) charges the first five and the kept-row pair for
+each wrapper call, on every device, in place of the plain version's
+operations.  Bytes count each
 input read once and each output written once; a multiply-add is two
 operations.
 """
@@ -100,3 +101,21 @@ def lif_record_work(n: int, e: int, n_steps: int, n_inputs: int,
     only for those."""
     nbytes = 4 * (n + 1) + 8 * e + n + 4 * n_inputs * n_steps + 12 * n
     return nbytes, 2 * (e * n_steps if active is None else active)
+
+
+def moe_rows_work(src, idx, w, *, mats: int, kept: int | None = None,
+                  hit: int | None = None) -> tuple[int, int]:
+    """A kept-row launch of the MoE's experts (``moe_gate_up``: ``mats`` 2,
+    src x (T, D), w (E, D, F); ``moe_down``: ``mats`` 1, src h (T*k, F), w
+    (E, F, D)): idx and src in, the ``mats`` weight matrices of the
+    ``hit`` experts a choice kept within capacity was routed to, every
+    choice's output row out; per weight element 2 flops a kept choice of
+    its expert.  ``kept`` and ``hit`` depend on the routing: left out,
+    they are their most from the shapes (every choice kept, min(E, T*k)
+    experts), as the dry run charges them."""
+    n = idx.numel()
+    e, depth, width = w.shape
+    kept = n if kept is None else kept
+    hit = min(e, n) if hit is None else hit
+    nbytes = 8 * n + 4 * (src.numel() + mats * hit * depth * width + n * width)
+    return nbytes, 2 * mats * kept * depth * width

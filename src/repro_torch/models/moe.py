@@ -27,7 +27,12 @@ layout of a multi-axis dim (``launch/sharding.py``).
 Without a mesh the reference runs ``shard_map`` as ``gather`` and ignores
 ``inference_ep``; so does the port.  All modes drop tokens beyond an
 expert's capacity and return the switch-style load-balancing aux loss.
-MoE has no Pallas kernel; it is plain PyTorch.
+The reference's MoE has no Pallas kernel: it is plain JAX.  The port's
+``gather`` mode adds one route of its own where the weights bound the
+experts (decode: a few choices an expert): the kept-row kernel pair
+(``ops.moe_gate_up``, ``ops.moe_down``) computes the kept choices' rows
+alone and reads only the experts they were routed to, in place of the
+padded (E, C, D) GEMMs (:func:`_kept_rows`).
 
 While a profiler collects (``obs``), each mode marks its routing, dispatch,
 experts and combine as spans (``moe.route``, ``moe.dispatch``,
@@ -46,6 +51,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import obs
+from ..kernels import ops
 from ..launch import sharding as sh
 from .blocks import init_linear, init_swiglu, mm, swiglu_ffn
 
@@ -84,12 +90,42 @@ def _capacity(cfg, tokens: int) -> int:
     return max(c, 4)
 
 
+#: the most choices an expert, T * k / E on average, at which ``gather``
+#: runs the experts on the kept rows alone (:func:`_kept_rows`).  A float32
+#: weight element does 2 flops for each row that reads it, against its 4
+#: bytes; the card's float32 ridge is 67 TFLOP/s over 3.35 TB/s, 20 flop/B,
+#: which 40 rows reach.  Under it the weights' bytes bound the experts and
+#: the padded GEMMs compute rows nobody reads; above it they are
+#: compute-bound, and a GEMM is the right tool.  Timed on an H100 against
+#: the padded route (``tools/moe_kept_ab.py``, capacity 1.25, jamba's and
+#: deepseek-v3's layers), the pair is 1.45-2.0 x as fast at 1 to 8 rows,
+#: 1.12 x at 16, and at 32 already 6 % slower at jamba's (an expert past
+#: 32 rows reads its weights again), so the route stops at 16.
+R_MAX = 16
+
+
+def _kept_rows(x, ex, cfg) -> bool:
+    """Whether ``gather`` runs the experts by the kept-row kernels: no
+    gradient is recorded (they have no backward), x and the weights are
+    float32 (the type the kernels take) and the mean choices an expert are
+    at most :data:`R_MAX`."""
+    ws = (ex["w_gate"], ex["w_up"], ex["w_down"])
+    return (not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *ws)))
+            and all(t.dtype == torch.float32 for t in (x, *ws))
+            and x.shape[0] * cfg.moe_top_k <= R_MAX * cfg.moe_experts)
+
+
+def _positions(flat_idx, e: int):
+    """Each choice's place among the earlier choices of its expert, in flat
+    order (T*k,)."""
+    oh = F.one_hot(flat_idx, e)
+    return (torch.cumsum(oh, dim=0) - oh).gather(1, flat_idx[:, None])[:, 0]
+
+
 def _count_routing(choices: int, rows: int, pos, capacity: int, valid=None) -> None:
-    """The routing's counters, while ``obs`` records (off, no op runs):
-    ``choices`` (tokens x top-k) and expert ``rows`` computed, from the
-    host; the choices kept within capacity (``pos`` each choice's place in
-    its expert, ``valid`` the choices of this rank's experts), and the
-    experts with a kept choice, on the device.  An expert's first choice
+    """The routing's counters, while ``obs`` records (off, no op runs), from
+    ``pos``, each choice's place in its expert (``valid`` the choices of
+    this rank's experts): see :func:`_count`.  An expert's first choice
     (position 0) is kept whenever it has one, since the capacity is at
     least 4."""
     if obs.enabled():
@@ -97,10 +133,18 @@ def _count_routing(choices: int, rows: int, pos, capacity: int, valid=None) -> N
         if valid is not None:
             keep &= valid
             first &= valid
-        obs.count("moe.choices", choices)
-        obs.count("moe.rows", rows)
-        obs.count("moe.kept", keep.sum())
-        obs.count("moe.experts_hit", first.sum())
+        _count(choices, rows, keep.sum(), first.sum())
+
+
+def _count(choices: int, rows: int, kept, hit) -> None:
+    """``moe.choices`` (tokens x top-k) and the expert ``moe.rows`` (experts
+    x capacity, on every route) from the host; ``moe.kept``, the choices
+    kept within capacity, and ``moe.experts_hit``, the experts with a kept
+    choice, as device counts."""
+    obs.count("moe.choices", choices)
+    obs.count("moe.rows", rows)
+    obs.count("moe.kept", kept)
+    obs.count("moe.experts_hit", hit)
 
 
 def _run_experts(p, expert_in):
@@ -141,28 +185,61 @@ def _dispatch_onehot(p, x, gates, idx, cfg):
         return _einsum("tec,ecd->td", combine, expert_out)
 
 
+def _pad(x, idx, e: int, c: int):
+    """The padded route's dispatch: ``(buf, slot, keep, pos)``, buf (E, C, D)
+    each expert's first C choices' rows of x in flat order and zeros after;
+    slot each choice's row of buf flattened, e*c for a dropped one; keep
+    whether it was kept; pos its place among its expert's choices."""
+    t, d = x.shape
+    flat_idx = idx.reshape(-1)                                # (T*k,)
+    pos = _positions(flat_idx, e)
+    keep = pos < c
+    # every dropped choice writes the overflow row e*c, which is discarded
+    slot = torch.where(keep, flat_idx * c + pos, e * c)
+    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = x.repeat_interleave(idx.shape[1], dim=0)     # jnp.repeat(x, k, axis=0)
+    return buf[:e * c].reshape(e, c, d), slot, keep, pos
+
+
 def _dispatch_gather(p, x, gates, idx, cfg):
     """Capacity dispatch by scatter and gather (no dense (T, E, C) einsum)."""
     t, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     c = _capacity(cfg, t)
+    if _kept_rows(x, p["experts"], cfg):
+        return _dispatch_kept(p, x, gates, idx, cfg, c)
     with obs.span("moe.dispatch", x):
-        flat_idx = idx.reshape(-1)                            # (T*k,)
-        oh = F.one_hot(flat_idx, e)
-        pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat_idx[:, None])[:, 0]
-        keep = pos < c
-        # every dropped choice writes the overflow row e*c, which is discarded
-        slot = torch.where(keep, flat_idx * c + pos, e * c)
-        buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
-        buf[slot] = x.repeat_interleave(k, dim=0)             # jnp.repeat(x, k, axis=0)
+        buf, slot, keep, pos = _pad(x, idx, e, c)
     _count_routing(t * k, e * c, pos, c)
     with obs.span("moe.experts", x):
-        expert_out = _run_experts(p, buf[:e * c].reshape(e, c, d)).reshape(e * c, d)
+        expert_out = _run_experts(p, buf).reshape(e * c, d)
     with obs.span("moe.combine", x):
         expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
         w = gates.reshape(-1)[:, None] * keep[:, None].to(gates.dtype)
         picked = expert_out[slot] * w
         return picked.reshape(t, k, -1).sum(dim=1)
+
+
+def _dispatch_kept(p, x, gates, idx, cfg, c):
+    """``gather``'s experts on the kept choices' rows alone: each choice's
+    SwiGLU row (0 where its expert was full) from the kept-row kernel pair,
+    which finds its rows in ``idx`` and reads only the experts hit; the
+    combine as the padded route's."""
+    t, k = idx.shape
+    ex = p["experts"]
+    with obs.span("moe.dispatch", x):
+        # the kernels need no buffer: the index work left is the record's,
+        # from each expert's load (one scatter-add, no host sync)
+        if obs.enabled():
+            e, flat = cfg.moe_experts, idx.reshape(-1)
+            load = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+                0, flat, torch.ones_like(flat))
+            _count(t * k, e * c, load.clamp(max=c).sum(), (load > 0).sum())
+    with obs.span("moe.experts", x):
+        h = ops.moe_gate_up(x, idx, ex["w_gate"], ex["w_up"], capacity=c)
+        out = ops.moe_down(h, idx, ex["w_down"], capacity=c)
+    with obs.span("moe.combine", x):
+        return (out * gates.reshape(-1)[:, None]).reshape(t, k, -1).sum(dim=1)
 
 
 # ----------------------------------------------------------------------

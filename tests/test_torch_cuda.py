@@ -55,6 +55,7 @@ def _no_nvcc(monkeypatch, tmp_path):
 def _kernel_calls(dist, lams, csr, a):
     qkv = torch.zeros((1, 2, 8, 64), device=a.device)
     scan = _scan_args(1, 40, 16, 8, torch.float32, a.device, chunk=16)
+    idx = torch.zeros((a.shape[1], 1), dtype=torch.int64, device=a.device)
     return (
         lambda: ops.relax_round(dist, lams, csr),
         lambda: ops.relax_round_witness(dist, lams, csr),
@@ -73,6 +74,8 @@ def _kernel_calls(dist, lams, csr, a):
         lambda: ops.lif_record(tlif.synapse_csr(
             np.array([0, 1]), np.array([1, 2]), np.ones(2), 4, a.device),
             torch.zeros(4, dtype=torch.bool, device=a.device), a[0, :3], tlif.LIFParams()),
+        lambda: ops.moe_gate_up(a[0], idx, a, a, capacity=4),
+        lambda: ops.moe_down(a[0], idx, a, capacity=4),
     )
 
 
@@ -209,6 +212,7 @@ def _wrapper_calls():
                           pre=torch.tensor([1, 0], dtype=torch.int32),
                           weight=torch.ones(2), post=torch.tensor([0, 1]))
     draws = torch.zeros((3, 2))
+    idx = torch.zeros((8, 1), dtype=torch.int64)
     return {
         "relax_round": (dist, lambda: ops.relax_round(dist, lams, csr)),
         "relax_round_witness": (dist, lambda: ops.relax_round_witness(dist, lams, csr)),
@@ -225,6 +229,8 @@ def _wrapper_calls():
         "spike_input": (syn.weight, lambda: ops.spike_input(torch.ones(2), syn)),
         "lif_record": (draws, lambda: ops.lif_record(
             syn, torch.zeros(2, dtype=torch.bool), draws, tlif.LIFParams())),
+        "moe_gate_up": (a[0], lambda: ops.moe_gate_up(a[0], idx, a, a, capacity=4)),
+        "moe_down": (a[0], lambda: ops.moe_down(a[0], idx, a, capacity=4)),
     }
 
 
@@ -1282,3 +1288,82 @@ def test_a_reduced_train_step_agrees_between_card_and_host(arch):
     for p, c, h in zip(tree_leaves(host_p), tree_leaves(card_new), tree_leaves(host_new)):
         bound = opt.lr * (1 + opt.weight_decay * p.abs()) * 1.001
         assert ((c.cpu() - p).abs() <= bound).all() and ((h - p).abs() <= bound).all()
+
+
+# ----------------------------------------------------------------------
+# the MoE's kept-row pair
+# ----------------------------------------------------------------------
+#: name: (E, D, F, T, k): decode's two shapes at full width, and a ragged
+#: one (depth and width off the kernels' tiles, more choices than a block
+#: walks at once, an expert with more kept rows than a pass takes)
+MOE_SHAPES = {**tref.MOE_DECODE_SHAPES, "ragged": (5, 100, 36, 150, 2)}
+
+
+def _moe_routings(e, t, k, dev):
+    """name -> (idx, capacity): random distinct experts a token, dropless
+    (an int64 view of a wider sorted tensor's first k columns, as the
+    router passes it); expert 0 first for every token, dropless (one expert
+    takes every token's row); the same at capacity 4 (most dropped)."""
+    gen = torch.Generator().manual_seed(e * 1000 + t)
+    wide = torch.rand((t, e), generator=gen).argsort(dim=1).to(dev)
+    skew = wide.clone()
+    first = (skew == 0).int().argmax(dim=1)
+    skew[torch.arange(t, device=dev), first] = skew[:, 0]
+    skew[:, 0] = 0
+    return {"random": (wide[:, :k], t), "one_expert_takes_all": (skew[:, :k], t),
+            "drops": (skew[:, :k].contiguous(), 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+def test_moe_kept_row_pair_matches_its_plain_version_on_the_card(shape):
+    """Each kernel within ``ref.MOE_TOL`` of its plain version on the same
+    inputs (the down kernel on the gate-up kernel's h; float32 sums in
+    another order than cuBLAS's, TF32 off), dropped rows 0, two runs bit
+    for bit equal, one launch a call."""
+    dev = _need_cuda()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    e, d, f, t, k = MOE_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((t, d), generator=gen, device=dev)
+    wg, wu = (0.02 * torch.randn((e, d, f), generator=gen, device=dev) for _ in range(2))
+    wd = 0.02 * torch.randn((e, f, d), generator=gen, device=dev)
+    for name, (idx, cap) in _moe_routings(e, t, k, dev).items():
+        before = dict(ops.LAUNCHES)
+        h = ops.moe_gate_up(x, idx, wg, wu, capacity=cap)
+        out = ops.moe_down(h, idx, wd, capacity=cap)
+        assert {n: v - before[n] for n, v in ops.LAUNCHES.items() if v != before[n]} \
+            == {"moe_gate_up": 1, "moe_down": 1}
+        assert torch.equal(ops.moe_gate_up(x, idx, wg, wu, capacity=cap), h)
+        assert torch.equal(ops.moe_down(h, idx, wd, capacity=cap), out)
+        h_plain = tref.moe_gate_up_ref(x, idx, wg, wu, capacity=cap)
+        assert tref.moe_excess(h, h_plain) <= 1.0, name
+        assert tref.moe_excess(out, tref.moe_down_ref(h, idx, wd, capacity=cap)) <= 1.0, name
+        plain = tref.moe_down_ref(h_plain, idx, wd, capacity=cap)
+        assert tref.moe_excess(out, plain) <= 1.0, name
+        assert torch.equal(out == 0, plain == 0) and bool((h_plain.abs().sum(1) == 0).any()) \
+            == (name == "drops")
+
+
+def test_moe_wrappers_reject_what_their_kernels_do_not_take(monkeypatch):
+    """Checked before the build, so these raise here too (routing forced)."""
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    x, idx = torch.zeros((4, 8)), torch.zeros((4, 2), dtype=torch.int64)
+    w = torch.zeros((3, 8, 12))
+    with pytest.raises(TypeError, match="x must be"):
+        ops.moe_gate_up(x.bfloat16(), idx, w, w, capacity=4)
+    with pytest.raises(TypeError, match="w_up must be"):
+        ops.moe_gate_up(x, idx, w, w.double(), capacity=4)
+    with pytest.raises(TypeError, match="int64 idx"):
+        ops.moe_gate_up(x, idx.int(), w, w, capacity=4)
+    with pytest.raises(TypeError, match="int64 idx"):
+        ops.moe_gate_up(x, idx.t().contiguous().t(), w, w, capacity=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_down(torch.zeros((8, 12)), idx, w.transpose(1, 2), capacity=4)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ops.moe_gate_up(x, idx, w[:, :, :10].contiguous(), w[:, :, :10].contiguous(),
+                        capacity=4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.moe_gate_up(torch.zeros(33)[1:].view(4, 8), idx, w, w, capacity=4)
+    with pytest.raises(ValueError, match="capacity"):
+        ops.moe_gate_up(x, idx, w, w, capacity=0)

@@ -34,7 +34,7 @@ BATCH, PROMPT, MAX_LEN = 2, 12, 16
 LAUNCH_NAMES = {"relax_round", "relax_round_witness", "maxplus_bmm", "maxplus_bmv",
                 "maxplus_matmul", "flash_attention", "lif_crossbar_step", "mamba_chunk_scan",
                 "mamba_chunk_states", "mamba_chunk_combine", "mamba_scan_route", "spike_input",
-                "lif_record"}
+                "lif_record", "moe_gate_up", "moe_down"}
 
 
 @pytest.fixture(autouse=True)
