@@ -19,15 +19,20 @@ At each checked position of each sampled request (prefill) or session
   alone decides it, so no fault of the program can move it.
 
 The numbers, each the largest over the sampled requests or sessions of a
-statistic over its positions:
+statistic over its positions before its first near tie (every position
+where the mix gives no ``near_tie``, as prefill's do):
 
-* ``logit_err_p50``, ``logit_err_p95``: quantiles of ``err`` over every
-  position;
+* ``logit_err_p50``, ``logit_err_p95``: quantiles of ``err``;
 * ``logit_err_share``: the share of positions whose ``err`` is over the
   cell's ``share_over``, where the cell gives one;
 * ``logit_err_max`` and, for decode, ``served_gap``: the widest ``err``
-  and ``gap`` over the positions before the session's first near tie;
-  ``left_out`` (decode) is the share of positions after one.
+  and ``gap``;
+* ``left_out`` (decode): the share of positions after a near tie.
+
+Past a near tie a sound program that sent a token to the other expert
+carries that token's other hidden state in its Mamba and attention states,
+so every later position of the session may differ from the reference by
+far more than rounding: no number reads those positions.
 
 A fault on half of a request's positions moves its median; one on a tenth
 of them, its 95th percentile or its share over a bound that sound rows
@@ -78,24 +83,25 @@ def units(kind: str, answer, ref: torch.Tensor, tie: torch.Tensor, cols=None) ->
 
 
 def numbers(found: list[dict], near_tie=None, share_over=None) -> dict:
-    """The numbers of the units ``found``: the quantiles and the share over
-    ``share_over`` of every position, the widest values of the positions
-    whose ``tie`` is ``near_tie`` or more."""
-    out = {name: max(float(torch.quantile(u["err"].double(), q)) for u in found)
-           for name, q in QUANTILES.items()}
-    if share_over is not None:
-        out["logit_err_share"] = max(float((u["err"] > share_over).double().mean()) for u in found)
-    widest, gaps, total, left = [], [], 0, 0
+    """The numbers of the units ``found``, over the positions whose ``tie``
+    is ``near_tie`` or more (every position without ``near_tie``).  A number
+    that no unit has such a position for is missing, and fails its limit."""
+    errs, gaps, total, left = [], [], 0, 0
     for u in found:
         keep = torch.ones_like(u["err"], dtype=torch.bool) if near_tie is None \
             else u["tie"] >= near_tie
         total, left = total + keep.numel(), left + int((~keep).sum())
         if keep.any():
-            widest.append(float(u["err"][keep].max()))
+            errs.append(u["err"][keep].double())
             if "gap" in u:
                 gaps.append(float(u["gap"][keep].max()))
-    if widest:
-        out["logit_err_max"] = max(widest)
+    out = {}
+    if errs:
+        out = {name: max(float(torch.quantile(e, q)) for e in errs)
+               for name, q in QUANTILES.items()}
+        if share_over is not None:
+            out["logit_err_share"] = max(float((e > share_over).double().mean()) for e in errs)
+        out["logit_err_max"] = max(float(e.max()) for e in errs)
     if "gap" in found[0]:
         out["left_out"] = left / total
         if gaps:

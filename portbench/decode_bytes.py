@@ -14,6 +14,10 @@ time.
 * A Mamba layer's float32 states, read and written a token: d_inner x
   (d_state + d_conv - 1).
 
+A layer kind not counted here (``work.MIXERS``, ``work.FFNS``) is counted
+by its configuration's reference module: ``KINDS[kind]``'s ``dense_params``
+and ``window_bytes``.
+
 Nothing the program reads beyond that counts: padded expert rows, experts
 with no token, cache slots past the fill, intermediates.
 """
@@ -21,13 +25,15 @@ with no token, cache slots past the fill, intermediates.
 from __future__ import annotations
 
 from portbench.readers import ELEM_BYTES
+from portbench.work import FFNS, added
 
 #: the port keeps recurrent states in float32 whatever the cache's type
 STATE_BYTES = 4
 
 
-def dense_params(m: dict) -> int:
-    """Parameters every decode step reads whole (routed experts aside)."""
+def dense_params(m: dict, kinds=None) -> int:
+    """Parameters every decode step reads whole (routed experts aside);
+    ``kinds`` counts the kinds not counted here."""
     d = m["d_model"]
     total = d * m["vocab"] + d                    # LM head, final norm
     for mixer, ffn in m["layers"]:
@@ -44,7 +50,7 @@ def dense_params(m: dict) -> int:
             total += d * 2 * di + m["mamba_d_conv"] * di + di * (rk + 2 * n) + rk * di \
                 + di * n + di + di * d
         else:
-            raise ValueError(f"no byte count for mixer {mixer!r}")
+            total += added(kinds, mixer, "dense_params")(m)
         if ffn != "none":
             total += d                            # norm2
         if ffn == "swiglu":
@@ -52,21 +58,22 @@ def dense_params(m: dict) -> int:
         elif ffn == "moe":
             total += d * m["moe_experts"] + 3 * d * m["moe_d_ff"] * m["moe_shared"]
         elif ffn != "none":
-            raise ValueError(f"no byte count for ffn {ffn!r}")
+            total += added(kinds, ffn, "dense_params")(m)
     return total
 
 
 def window_bytes(m: dict, traffic: dict, steps: int, tokens: int, pairs: int,
-                 experts_hit: int) -> int:
+                 experts_hit: int, kinds=None) -> int:
     """Bytes of ``steps`` decode steps over ``tokens`` tokens whose queries
     kept ``pairs`` (query, key) pairs a layer, with ``experts_hit`` experts
-    hit over all steps and MoE layers."""
+    hit over all steps and MoE layers; ``kinds`` counts the kinds not
+    counted here."""
     pb = ELEM_BYTES[traffic["params_dtype"]]
     cb = ELEM_BYTES[traffic["cache_dtype"]]
     d = m["d_model"]
     expert = 3 * d * m["moe_d_ff"] if any(f == "moe" for _, f in m["layers"]) else 0
-    total = (steps * dense_params(m) + experts_hit * expert + tokens * d) * pb
-    for mixer, _ in m["layers"]:
+    total = (steps * dense_params(m, kinds) + experts_hit * expert + tokens * d) * pb
+    for mixer, ffn in m["layers"]:
         if mixer == "gqa":
             total += pairs * 2 * m["n_kv_heads"] * m["head_dim"] * cb
         elif mixer == "mla":
@@ -74,4 +81,8 @@ def window_bytes(m: dict, traffic: dict, steps: int, tokens: int, pairs: int,
         elif mixer == "mamba":
             di = m["mamba_d_inner"]
             total += tokens * 2 * di * (m["mamba_d_state"] + m["mamba_d_conv"] - 1) * STATE_BYTES
+        else:
+            total += added(kinds, mixer, "window_bytes")(m, tokens, pairs, cb)
+        if ffn not in FFNS:
+            total += added(kinds, ffn, "window_bytes")(m, tokens, pairs, cb)
     return total

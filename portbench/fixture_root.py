@@ -1,6 +1,7 @@
 """A benchmark root at CPU test size, made of new files and entries only:
 two tiny configurations of the two architectures, a prefill and a decode
-mix, and one cell of each pairing, with the repository's metric readers.
+mix, and one cell of each pairing, with the repository's metric readers and
+plain references.
 The tests run the harness on it exactly as on ``BENCHMARK.json``."""
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ def make(root) -> pathlib.Path:
     pb = root / "portbench"
     for sub in ("configs", "traffic", "cells"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(ROOT / "portbench" / "metrics", pb / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "reference"):
+        shutil.copytree(ROOT / "portbench" / sub, pb / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     if not (root / "src").exists():
         (root / "src").symlink_to(ROOT / "src")
     (pb / "configs" / "tiny-jamba.json").write_text(json.dumps(JAMBA))

@@ -27,7 +27,7 @@ import types
 
 import numpy as np
 
-from portbench import check, loops, spec, weights
+from portbench import check, loops, spec, weights, work
 from portbench import trace as trace_mod
 
 #: top-level modules a run must never load: the JAX package and JAX itself
@@ -77,9 +77,10 @@ def port_config(port, config: dict, traffic: dict):
         full, stacks=tuple((r, specs) for r, (_, specs) in zip(repeats, full.stacks)),
         dtype=traffic["activation_dtype"], **config["port"].get("overrides", {}))
     cap = traffic["moe_capacity"]
-    if cap == "dropless":
+    # a model without a MoE has nothing for the mix's capacity to bound
+    if cfg.moe_experts and cap == "dropless":
         cfg = dataclasses.replace(cfg, moe_capacity=cfg.moe_experts / cfg.moe_top_k)
-    elif cap != "config":
+    elif cfg.moe_experts and cap != "config":
         cfg = dataclasses.replace(cfg, moe_capacity=float(cap))
     model = config["model"]
     layers = [[s.mixer, s.ffn] for r, specs in cfg.stacks for _ in range(r) for s in specs]
@@ -122,6 +123,13 @@ class Run:
         self.config = self.bench.config(self.cell["config"])
         self.traffic = self.bench.traffic(self.cell["traffic"])
         self.model, self.kind = self.config["model"], self.traffic["kind"]
+        self.reference = self.bench.reference(self.config)
+        self.kinds = getattr(self.reference, "KINDS", {})
+        unknown = work.unknown_kinds(self.model, self.kinds)
+        if unknown:
+            raise ValueError(f"{self.cell['config']}: layer kinds {unknown} are counted neither by "
+                             f"portbench nor by the KINDS of its reference module "
+                             f"{self.bench.reference_path(self.config)}")
         t = time.perf_counter()
         self.port = import_port(self.root)
         self.cfg = port_config(self.port, self.config, self.traffic)
@@ -132,7 +140,8 @@ class Run:
         t = time.perf_counter()
         dtype = getattr(torch, self.traffic["params_dtype"])
         meta = self.port.tf.init_params(self.cfg, self.port.blocks.SHAPE_ONLY, dtype=dtype)
-        self.params = weights.draw(meta, seed, device, self.config["initializer_range"])
+        self.params = weights.draw(meta, seed, device, self.config["initializer_range"],
+                                   self.reference)
         self.loop = loops.make(self.traffic, self.cfg, self.params, seed, device, self.port.steps,
                                self.port.tf)
         loops.sync(device)
@@ -160,15 +169,20 @@ class Run:
         self.notes["trace_read_s"] = time.perf_counter() - t
         return stats, tr
 
+    def context(self, stats: dict, tr, window_peak: int):
+        """What the per-layer readers read of this run (``readers.py``)."""
+        return types.SimpleNamespace(stats=stats, trace=tr, model=self.model, kinds=self.kinds,
+                                     traffic=self.traffic, cuda=self.cuda,
+                                     window_peak_bytes=window_peak)
+
     def judge(self, controls=()) -> tuple[dict, dict]:
-        """The window's per-position values against the float32 reference
-        (``"program"``), and for each precision in ``controls`` the
-        reference at that precision in the program's place; and the numbers
-        of each.  Frees the program's state first."""
+        """The window's per-position values against the configuration's
+        float32 reference (``"program"``), and for each precision in
+        ``controls`` the reference at that precision in the program's place;
+        and the numbers of each.  Frees the program's state first."""
         import torch
 
-        from portbench.reference.model import logits_at
-
+        logits_at = self.reference.logits_at
         self.loop.free()
         if self.cuda:
             torch.cuda.empty_cache()
@@ -213,8 +227,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, traced: bool, devic
     ok, shown = check.verdict(numbers, run.bench.limits(workload))
 
     if traced:
-        ctx = types.SimpleNamespace(stats=stats, trace=tr, model=run.model, traffic=run.traffic,
-                                    cuda=run.cuda, window_peak_bytes=window_peak)
+        ctx = run.context(stats, tr, window_peak)
         metrics = {}
         for m in run.bench.per_layer(workload):
             value = run.bench.reader(m["name"])(ctx)

@@ -17,5 +17,5 @@ def read(ctx):
         return None
     nbytes = decode_bytes.window_bytes(ctx.model, ctx.traffic, step["count"],
                                        ctx.stats["processed"], ctx.stats["pairs"],
-                                       c.get("moe.experts_hit", 0))
+                                       c.get("moe.experts_hit", 0), ctx.kinds)
     return 100.0 * nbytes / (step["device_s"] * work.HBM_BYTES_PER_S)

@@ -1,10 +1,11 @@
 """What the per-layer metrics read, shared by their files in ``metrics/``.
 
 Each reader takes the run's context (``stats`` of the window, the parsed
-``trace``, the configuration's ``model`` block, the ``traffic`` mix, the
-window's allocator peak) and returns a number, or None where the run has
-nothing for it to read: no card, no trace, no matching kernel.  A share of
-a peak or a roofline is never made up as 0.
+``trace``, the configuration's ``model`` block and ``kinds``, its reference
+module's ``KINDS``, the ``traffic`` mix, the window's allocator peak) and
+returns a number, or None where the run has nothing for it to read: no
+card, no trace, no matching kernel.  A share of a peak or a roofline is
+never made up as 0.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def step_mfu(ctx):
     window and the peak of the type the step's products run in."""
     if not ctx.cuda:
         return None
-    flops = work.model_flops(ctx.model, ctx.stats["processed"], ctx.stats["pairs"])
+    flops = work.model_flops(ctx.model, ctx.stats["processed"], ctx.stats["pairs"], ctx.kinds)
     peak = work.STEP_PEAK_FLOPS_PER_S[ctx.traffic["params_dtype"]]
     return 100.0 * flops / (ctx.stats["window_s"] * peak)
 

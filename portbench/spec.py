@@ -3,8 +3,10 @@
 A configuration is ``file`` of its entry; a traffic mix is
 ``portbench/traffic/<traffic>.json``; a cell's limits (and the check's
 parameters of that cell) are ``portbench/cells/<cell>.json``; a per-layer metric is the reader
-``portbench/metrics/<metric>.py``.  Adding any of them is adding a file and
-an entry: nothing here names one.
+``portbench/metrics/<metric>.py``; a configuration's plain reference is
+``portbench/reference/<stem>.py``, ``<stem>`` its ``"reference"`` key or
+``model``.  Adding any of them is adding a file and an entry: nothing here
+names one.
 """
 
 from __future__ import annotations
@@ -12,8 +14,14 @@ from __future__ import annotations
 import importlib.util
 import json
 import pathlib
+import sys
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+#: the package a configuration's reference runs in: its ``__path__`` is the
+#: run's own ``portbench/reference/``, so that a relative import (``from .
+#: import model``) finds the sibling file of the root the run reads
+REFERENCE_PACKAGE = "portbench_reference"
 
 
 class Bench:
@@ -56,8 +64,30 @@ class Bench:
 
     def reader(self, metric: str):
         """The ``read(ctx)`` of ``portbench/metrics/<metric>.py``."""
-        path = self.root / "portbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(self.root / "portbench" / "metrics" / f"{metric}.py",
+                     f"portbench_metric_{metric}").read
+
+    def reference_path(self, config: dict) -> pathlib.Path:
+        """The file of the plain reference of ``config``, a configuration
+        file's contents."""
+        return self.root / "portbench" / "reference" / f"{config.get('reference', 'model')}.py"
+
+    def reference(self, config: dict):
+        """The module at ``reference_path``: its ``logits_at`` and, where it
+        adds layer kinds, its ``KINDS`` and ``INIT``.  It and the siblings it
+        imports run anew from this root, in ``REFERENCE_PACKAGE``."""
+        path = self.reference_path(config)
+        for name in [n for n in sys.modules if n.split(".")[0] == REFERENCE_PACKAGE]:
+            del sys.modules[name]
+        package = types.ModuleType(REFERENCE_PACKAGE)
+        package.__path__ = [str(path.parent)]
+        sys.modules[REFERENCE_PACKAGE] = package
+        return _load(path, f"{REFERENCE_PACKAGE}.{path.stem}")
+
+
+def _load(path: pathlib.Path, name: str):
+    """The module of the file at ``path``, run anew under ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

@@ -186,11 +186,14 @@ def test_positions_after_a_near_tie_are_left_out_of_the_widest_numbers():
     kept = check.numbers([one, gone], near_tie=1e-4, share_over=1.0)
     assert kept["logit_err_max"] == pytest.approx(2e-7) and kept["served_gap"] == 0.0
     assert kept["left_out"] == 6 / 8
-    # the quantiles and the share read every position
-    assert kept["logit_err_p50"] == pytest.approx(2.5) and kept["logit_err_share"] == 0.5
-    assert check.numbers([one])["logit_err_max"] == 5.0
+    # the quantiles and the share read the same positions
+    assert kept["logit_err_p50"] == pytest.approx(1.5e-7) and kept["logit_err_share"] == 0.0
+    everywhere = check.numbers([one], share_over=1.0)
+    assert everywhere["logit_err_max"] == 5.0 and everywhere["logit_err_p50"] == pytest.approx(2.5)
+    assert everywhere["logit_err_share"] == 0.5
     alone = check.numbers([gone], near_tie=1e-4)
     assert alone["left_out"] == 1.0 and "served_gap" not in alone
+    assert "logit_err_p50" not in alone and not check.verdict(alone, {"logit_err_p50": 1.0})[0]
     assert not check.verdict(alone, {"served_gap": 1.0})[0]
 
 

@@ -114,8 +114,8 @@ def test_a_traced_decode_names_the_span_open_in_each_idle_gap(root, obs, monkeyp
 
 
 def _ctx(model, traffic, stats, cuda=True):
-    return types.SimpleNamespace(cuda=cuda, trace=object(), model=model, traffic=traffic,
-                                 stats=stats, window_peak_bytes=0)
+    return types.SimpleNamespace(cuda=cuda, trace=object(), model=model, kinds={},
+                                 traffic=traffic, stats=stats, window_peak_bytes=0)
 
 
 def _record(step, device):

@@ -129,9 +129,41 @@ def test_nothing_here_imports_jax_or_the_jax_package():
         assert not {"jax", "jaxlib", "flax", "repro"} & set(_imports(path)), path
 
 
+#: what a plain reference may import besides its sibling references, which
+#: it imports relatively (``from . import model``) so that they come from the
+#: run's own root: nothing of the program or the yardstick
+REFERENCE_IMPORTS = ("__future__", "math", "torch")
+
+
+def _foreign_imports(path):
+    """The modules ``path``, a file of ``portbench/reference/``, imports
+    beyond ``REFERENCE_IMPORTS`` and its siblings."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level != 1:
+            names = ["." * node.level + (node.module or "")]
+        else:
+            continue
+        yield from (n for n in names if n.split(".")[0] not in REFERENCE_IMPORTS)
+
+
 def test_the_reference_imports_nothing_of_the_program():
     for path in (ROOT / "portbench" / "reference").rglob("*.py"):
-        assert set(_imports(path)) <= {"__future__", "math", "torch"}, path
+        assert not list(_foreign_imports(path)), path
+
+
+@pytest.mark.parametrize("line", ["import repro_torch", "from repro_torch.models import blocks",
+                                  "import portbench.work", "from portbench import work",
+                                  "from .. import work", "import numpy",
+                                  "from portbench.reference import model"])
+def test_the_reference_import_rule_refuses_the_program_and_the_yardstick(tmp_path, line):
+    path = tmp_path / "sibling.py"
+    path.write_text(f"from . import model\n{line}\n")
+    assert list(_foreign_imports(path)) != []
+    path.write_text("from __future__ import annotations\nimport torch.nn.functional as F\n"
+                    "from . import model\nfrom .model import Precision\n")
+    assert list(_foreign_imports(path)) == []
 
 
 def test_flash_work_by_hand():

@@ -7,9 +7,14 @@ and Mamba's D are one, Mamba's ``a_log`` is log(1..N) (S4D-real), its
 depthwise convolution is uniform within 1/sqrt(d_conv) (PyTorch's
 ``Conv1d``), dt's projection uniform within 1/sqrt(dt_rank) (Mamba's
 ``dt_init="random"``), biases zero, and every other matrix and the
-embedding normal with the configuration's ``initializer_range``.  Leaves of
-one kind are drawn together: one buffer and one call a kind, the leaves
-views into it, so the card draws a model in a handful of launches.
+embedding normal with the configuration's ``initializer_range``.  A
+configuration's reference module may name leaves in its ``INIT``, a rule a
+leaf name, which take that rule in place of this one: ``("normal", std)``,
+``("uniform", bound)``, ``("ones",)``, ``("zeros",)``, or ``("fill",
+name)``, the module's function ``name(view, generator)`` that fills each such
+leaf in place.  Leaves of one rule are drawn together: one buffer and one
+call a rule, the leaves views into it, so the card draws a model in a
+handful of launches.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ ONES = ("norm1", "norm2", "final_norm", "d_skip")
 ZEROS = ("bq", "bk", "bv", "b_up", "b_down")
 #: leaves start on multiples of this many elements (aligned rows for TMA)
 ALIGN = 256
+#: the rules a reference module's ``INIT`` may give a leaf
+RULES = ("normal", "uniform", "ones", "zeros", "fill")
 
 
 def leaves(tree, prefix=""):
@@ -34,8 +41,13 @@ def leaves(tree, prefix=""):
             yield path, value
 
 
-def _kind(path: str, shape, init_range: float):
+def _kind(path: str, shape, init_range: float, init: dict):
     name = path.rsplit("/", 1)[-1]
+    if name in init:
+        rule = tuple(init[name])
+        if rule[0] not in RULES:
+            raise ValueError(f"leaf {name!r}: rule {rule!r} is none of {RULES}")
+        return rule
     if name in ONES:
         return ("ones",)
     if name in ZEROS:
@@ -47,13 +59,16 @@ def _kind(path: str, shape, init_range: float):
     return ("normal", init_range)
 
 
-def draw(meta_tree, seed: int, device, init_range: float):
+def draw(meta_tree, seed: int, device, init_range: float, module=None):
     """A tree like ``meta_tree`` (shapes and dtypes) with values drawn on
-    ``device`` from ``seed``."""
+    ``device`` from ``seed``; ``module``, the configuration's reference,
+    gives its ``INIT`` and the fills it names."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    init = getattr(module, "INIT", {})
     groups: dict = {}
     for path, t in leaves(meta_tree):
-        groups.setdefault((t.dtype, _kind(path, t.shape, init_range)), []).append((path, t))
+        groups.setdefault((t.dtype, _kind(path, t.shape, init_range, init)), []).append((path, t))
+    fills = {kind[1]: getattr(module, kind[1]) for _, kind in groups if kind[0] == "fill"}
     made = {}
     for (dtype, kind), items in sorted(groups.items(), key=lambda kv: repr(kv[0])):
         sizes = [-(-t.numel() // ALIGN) * ALIGN for _, t in items]
@@ -73,6 +88,8 @@ def draw(meta_tree, seed: int, device, init_range: float):
                 n = t.shape[-1]
                 view.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))
                            .expand(t.shape))
+            elif kind[0] == "fill":
+                fills[kind[1]](view, gen)
             made[path] = view
             offset += size
     return _rebuild(meta_tree, made)

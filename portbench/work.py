@@ -6,6 +6,11 @@ benchmark was written (K6's ``flash_work`` and the scan route's
 ``route_work``), so that a change there cannot move a roofline here.
 Bytes count each input read once and each output written once; a
 multiply-add is two operations.
+
+A model's counts know the layer kinds ``MIXERS`` and ``FFNS``.  A
+configuration whose layers use another kind brings its counts in its
+reference module's ``KINDS``: for each kind it adds, the functions named in
+``COUNTS``, each given the ``model`` block.
 """
 
 from __future__ import annotations
@@ -19,6 +24,33 @@ FP32_FLOPS_PER_S = 67e12
 
 #: the peak a model step's products run at, by the type of its parameters
 STEP_PEAK_FLOPS_PER_S = {"bfloat16": BF16_FLOPS_PER_S, "float32": FP32_FLOPS_PER_S}
+
+#: the layer kinds counted here and in ``decode_bytes.py``
+MIXERS = ("gqa", "mla", "mamba")
+FFNS = ("swiglu", "moe", "none")
+#: what a reference module's ``KINDS[kind]`` gives for a kind it adds:
+#: ``matmul_params(m)``, the parameters a token multiplies in one such layer;
+#: ``pair_flops(m)``, its FLOPs per kept (query, key) pair; ``dense_params(m)``,
+#: the parameters a decode step reads whole in it (norms aside);
+#: ``window_bytes(m, tokens, pairs, cache_bytes)``, its cache or state bytes
+#: over a window's decode tokens and kept pairs
+COUNTS = ("matmul_params", "pair_flops", "dense_params", "window_bytes")
+
+
+def unknown_kinds(m: dict, kinds: dict) -> list[str]:
+    """The layer kinds of ``m`` counted neither here nor in full by ``kinds``
+    (a reference module's ``KINDS``)."""
+    used = {kind for layer in m["layers"] for kind in layer}
+    return sorted(k for k in used - set(MIXERS + FFNS) if not set(COUNTS) <= set(kinds.get(k, ())))
+
+
+def added(kinds, kind: str, count: str):
+    """The function ``count`` of a layer kind not counted here, from
+    ``kinds``; a ValueError where it has none."""
+    if count not in (kinds or {}).get(kind, {}):
+        raise ValueError(f"no {count} for layer kind {kind!r}: portbench does not count it and "
+                         f"the configuration's reference module gives no KINDS for it")
+    return kinds[kind][count]
 
 
 def causal_pairs(sq: int) -> int:
@@ -51,10 +83,11 @@ def bound_s(nbytes: int, flops: int, flops_per_s: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / flops_per_s)
 
 
-def matmul_params_per_token(m: dict) -> int:
+def matmul_params_per_token(m: dict, kinds=None) -> int:
     """Parameters a token multiplies in matrix products, in every layer and
     the LM head: the MoE's router, top-k routed experts and shared experts
-    (no capacity padding); no embedding, norm, convolution or scan."""
+    (no capacity padding); no embedding, norm, convolution or scan.  A kind
+    not counted here is counted by ``kinds``."""
     d = m["d_model"]
     total = d * m["vocab"]
     for mixer, ffn in m["layers"]:
@@ -69,31 +102,38 @@ def matmul_params_per_token(m: dict) -> int:
             di, rk, n = m["mamba_d_inner"], m["mamba_dt_rank"], m["mamba_d_state"]
             total += d * 2 * di + di * (rk + 2 * n) + rk * di + di * d
         else:
-            raise ValueError(f"no FLOP count for mixer {mixer!r}")
+            total += added(kinds, mixer, "matmul_params")(m)
         if ffn == "swiglu":
             total += 3 * d * m["d_ff"]
         elif ffn == "moe":
             total += d * m["moe_experts"] \
                 + 3 * d * m["moe_d_ff"] * (m["moe_top_k"] + m["moe_shared"])
         elif ffn != "none":
-            raise ValueError(f"no FLOP count for ffn {ffn!r}")
+            total += added(kinds, ffn, "matmul_params")(m)
     return total
 
 
-def attention_flops_per_pair(m: dict) -> int:
+def attention_flops_per_pair(m: dict, kinds=None) -> int:
     """FLOPs of one kept (query, key) pair, summed over the layers' heads:
-    4 head_dim a head in GQA, 2 (d_qk + d_v) a head in MLA."""
+    4 head_dim a head in GQA, 2 (d_qk + d_v) a head in MLA, none in Mamba
+    or an FFN here; a kind not counted here, as ``kinds`` counts it."""
     total = 0
-    for mixer, _ in m["layers"]:
+    for mixer, ffn in m["layers"]:
         if mixer == "gqa":
             total += 4 * m["head_dim"] * m["n_heads"]
         elif mixer == "mla":
             d_qk = m["mla_nope_dim"] + m["mla_rope_dim"]
             total += 2 * (d_qk + m["mla_v_dim"]) * m["n_heads"]
+        elif mixer not in MIXERS:
+            total += added(kinds, mixer, "pair_flops")(m)
+        if ffn not in FFNS:
+            total += added(kinds, ffn, "pair_flops")(m)
     return total
 
 
-def model_flops(m: dict, tokens: int, pairs: int) -> int:
+def model_flops(m: dict, tokens: int, pairs: int, kinds=None) -> int:
     """FLOPs of ``tokens`` tokens whose queries kept ``pairs`` (query, key)
-    pairs in every attention layer."""
-    return 2 * matmul_params_per_token(m) * tokens + attention_flops_per_pair(m) * pairs
+    pairs in every attention layer; ``kinds`` counts the kinds not counted
+    here."""
+    return 2 * matmul_params_per_token(m, kinds) * tokens \
+        + attention_flops_per_pair(m, kinds) * pairs
